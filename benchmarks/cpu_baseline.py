@@ -8,7 +8,7 @@ implementation as the reference's UpdatableQR/OpenBLAS loop, and the
 standard public CPU OMP). This replaces the round-1 self-proxy (our own
 solver on XLA CPU) with a number we did not produce ourselves.
 
-Workload: exactly the repo's TPU measurement shape — one (A, b) at a
+Workload: the repo's accelerator measurement shape — one (A, b) at a
 time (the reference is strictly single-instance, SURVEY.md §2.5),
 n=1024 measurements, m atoms, k=32, planted ±1 supports, f64 (sklearn's
 internal dtype). Reports per-solve wall-clock (best of `reps`) and

@@ -1,11 +1,11 @@
-"""cstpu — a TPU-native sparse recovery / feature selection framework.
+"""cstpu — a batched sparse recovery / feature selection framework.
 
-A brand-new JAX/XLA/Pallas implementation of the capability surface of
+A brand-new JAX/XLA implementation of the capability surface of
 CompressedSensing.jl (Ament & Gomes, ICML 2021 "Sparse Bayesian Learning via
 Stepwise Regression"): matching pursuits, forward/backward stepwise
 regression, two-stage methods, Sparse Bayesian Learning, and (reweighted)
-Basis Pursuit — designed batched-first for TPU with fixed-shape masked
-active sets, fused kernels, and mesh sharding, rather than the reference's
+Basis Pursuit — designed batched-first for an accelerator with fixed-shape
+masked active sets and mesh sharding, rather than the reference's
 single-threaded dynamic sparse vectors.
 
 Reference parity map (file:line cites refer to /root/reference):

@@ -71,8 +71,9 @@ def backward_step(A, b, st, max_eps, max_delta, m: int, naive: bool = False):
 
 @partial(jax.jit, static_argnames=("k", "naive"))
 def _br(A, b, k: int, max_eps, max_delta, naive: bool):
-    # f32 pin: TPU's default bf16 matmuls corrupt the deletion deltas
-    # over ~m iterative refits (measured: recovery 0.875 vs 1.0 at m=1024)
+    # f32 pin: reduced-precision default matmuls (TF32 on a GPU) corrupt
+    # the deletion deltas over ~m iterative refits (recovery 0.875 vs 1.0
+    # at m=1024 with bf16-grade products)
     with jax.default_matmul_precision("float32"):
         n, m = A.shape
         st0 = aset.refit(aset.rebuild(A, b, jnp.arange(m, dtype=jnp.int32),
@@ -184,8 +185,7 @@ def _fbr(A, b, k: int, max_eps, max_delta):
             d2 = jnp.where(st.mask, st.coef * st.coef / gdiag, jnp.inf)
             pos, mind2 = masked_argmin(d2, st.mask)
             # negated >= so NaN state (rank-deficient Gram -> NaN Cholesky
-            # init) latches the failure flag instead of comparing False —
-            # the same fix the fused kernel got (ops/fused_backward.py);
+            # init) latches the failure flag instead of comparing False;
             # the reference throws here (backward.jl:169)
             fail = ~((mind2 + normr2) >= 0)
             new_norm = jnp.sqrt(jnp.maximum(mind2 + normr2, 0))

@@ -7,7 +7,7 @@ the reference ships the equality LP to COIN-OR Clp (C++ simplex) and the
 SOCP to ECOS (C interior point) through JuMP (src/basispursuit.jl:7,83,
 135-137); here both are jit-compiled ADMM splittings whose per-iteration
 work is a couple of GEMVs + cheap proximal maps — dense, fused, and
-batchable on TPU, with the linear-system factor computed once.
+batchable, with the linear-system factor computed once.
 
   * bp:  min w'|x| s.t. Ax = b       — ADMM with exact affine projection
          via a cached Cholesky of AA' (exactly feasible each iterate).
@@ -61,7 +61,7 @@ def _bp_admm(A, b, w, rho, maxiter: int, tol, z0=None, u0=None):
     # assumes orthonormal rows. Re-whitening the nearly-orthonormal
     # result contracts the defect quadratically (5e3 -> 1.07 -> ~1+eps).
     # Shifted passes: once cond(A)^2 * eps ~ 1 the f32 Gram is
-    # numerically indefinite and Cholesky returns NaN on TPU (observed at
+    # numerically indefinite and Cholesky returns NaN (observed at
     # cond(A) ~ 3e4). An 8n-ulp diagonal shift keeps the factor real and
     # still whitens (rows come out orthonormal to ~shift level); two
     # shifted passes contract the conditioning enough that the FINAL
@@ -132,7 +132,7 @@ def bp(A, b, w=None, rho: float = 1.0, maxiter: int = 20000,
     iterate). Parity target: `basispursuit` (src/basispursuit.jl:1-16).
 
     `method`: "admm" (default — jit-compiled, batched/shardable, runs on
-    TPU) or "simplex" (exact vertex solution via the native C++ solver in
+    the accelerator) or "simplex" (exact vertex solution via the native C++ solver in
     cstpu.native — the on-host equivalent of the reference's Clp path).
 
     Precision contract: the ADMM constraint is row-whitened (twice — the
@@ -559,7 +559,7 @@ def bpd_reweighting(A, b, delta, reweight, maxiter: int = 8,
                     screen_margin: float = 0.5,
                     maxiter_admm: int = 20000):
     """Iteratively reweighted BPD. Parity: src/basispursuit.jl:102-115.
-    `method` selects the inner solver — "admm" (TPU) or "homotopy"
+    `method` selects the inner solver — "admm" (accelerator) or "homotopy"
     (native exact; each re-solve is exact, mirroring the reference's
     solver-exact reweighting through ECOS).
 

@@ -2,12 +2,28 @@
 
 Every cstpu solver is vmap-compatible; these wrappers make the batched
 path explicit and documented: a shared dictionary with a batch of
-measurements is THE high-throughput TPU workload (the per-step correlation
+measurements is THE high-throughput workload (the per-step correlation
 becomes one (B x n)(n x m) GEMM that reads A once for the whole batch).
 The reference has no batching at all — one (A, b) at a time.
+
+Every greedy `*_batch` entry point is `jax.vmap` of its per-instance
+solver. `precision` selects the correlation GEMM's precision
+(cstpu.ops.select): None = JAX's default matmul precision (TF32 on an
+H100, f32 on the CPU), 'bf16' = bf16 operands with f32 accumulation,
+'f32' / 'highest' = `Precision.HIGHEST`. The active-set algebra (Gram,
+bordered inverse, Schur downdates, refit, residual) runs at float32
+precision on every setting; f64 inputs stay f64.
+
+`fsbl_batch` / `rmps_batch` route 2-D f32 batches with scalar or (n, n)
+noise to the atom-sharded SBL (cstpu.parallel.sharded_sbl) on a
+one-device mesh: its posterior mean rides the Woodbury identity
+mu = Gamma A' C^-1 b instead of an (m, m) Gram per instance, which is
+what makes m ~ 10^5 and beyond fit on one device.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import jax
 import jax.numpy as jnp
@@ -30,14 +46,10 @@ def batch(solver, **fixed):
     return batched
 
 
-from functools import lru_cache
-
-
 @lru_cache(maxsize=1)
 def _one_device_mesh():
-    """Cached trivial ('batch', 'atoms') mesh on the default device —
-    lets the *_batch entry points reuse the sharded hybrid kernels as the
-    beyond-VMEM single-chip path (the hybrids are sharding-invariant)."""
+    """Cached trivial ('batch', 'atoms') mesh on the default device — lets
+    fsbl_batch/rmps_batch run the atom-sharded SBL on one device."""
     import numpy as np
     from jax.sharding import Mesh
 
@@ -45,334 +57,64 @@ def _one_device_mesh():
     return Mesh(devs, ("batch", "atoms"))
 
 
-def _cdt(precision):
-    """Correlation dtype for a `precision` option (None/'bf16' -> bf16)."""
-    import jax.numpy as jnp
-
-    return jnp.float32 if precision == "f32" else jnp.bfloat16
-
-
-def _stream_ok(A, Bs, precision=None):
-    """Gate for the streaming-select hybrid path (beyond-VMEM scale).
-
-    The gate must check the dtype the dictionary will actually be
-    streamed in: precision="f32" halves the largest streamable n, and a
-    bf16-width check would admit shapes the kernel then rejects (a crash
-    where the contract promises an XLA fallback)."""
-    import jax.numpy as jnp
-
-    from cstpu.ops.stream_select import supported_select
-
-    return (A.dtype == jnp.float32 and Bs.ndim == 2
-            and supported_select(A, Bs.shape[0], _cdt(precision)))
-
-
 def omp_batch(A, Bs, k=None, max_residual: float = 0.0, precision=None):
-    """Batched OMP over measurement rows Bs (B, n).
-
-    On TPU with a fixed step count (max_residual == 0) this dispatches to
-    the whole-solve fused Pallas kernel (cstpu.ops.fused_solve): the
-    dictionary is pinned in VMEM for all k steps and every correlation GEMM
-    runs at MXU rate. `precision` selects the dictionary dtype inside the
-    kernel: None/'bf16' (MXU-native, default — matches JAX's default f32
-    matmul precision on TPU) or 'f32'/'highest' (3-pass MXU f32, and
-    'highest' also disables the fused path entirely). Everything else
-    (inverse Gram, coefficients, residual) accumulates in f32 always. Off
-    TPU, or for unsupported shapes, falls back to the vmapped XLA solver.
-    """
-    import jax.numpy as jnp
-
-    from cstpu.ops import fused_solve
-
+    """Batched OMP over measurement rows Bs (B, n); `precision` as in the
+    module docstring."""
     A = jnp.asarray(A)
-    Bs = jnp.asarray(Bs)
-    kk = int(min(k if k is not None else A.shape[0], *A.shape))
-    fused_ok = (
-        precision in (None, "bf16", "f32")
-        and float(max_residual) == 0.0
-        and A.dtype == jnp.float32
-        and Bs.ndim == 2
-        and jax.default_backend() == "tpu"
-    )
-    if fused_ok:
-        cdt = _cdt(precision)
-        if fused_solve.supported(A, Bs, kk, cdt):
-            sol, _ = fused_solve.omp_fused_solve(A, Bs, kk, corr_dtype=cdt)
-            return sol
-        if fused_solve.supported_stream(A, Bs, kk, cdt):
-            # dictionary beyond VMEM scale: stream it from HBM per step
-            sol, _ = fused_solve.omp_stream_solve(A, Bs, kk, corr_dtype=cdt)
-            return sol
-    return jax.vmap(lambda bb: omp(A, bb, k, max_residual))(Bs)
+    return jax.vmap(lambda bb: omp(A, bb, k, max_residual,
+                                   precision=precision))(jnp.asarray(Bs))
 
 
 def fr_batch(A, Bs, max_residual: float = 0.0, min_decrease: float = 0.0,
              sparsity=None, precision=None):
-    """Batched forward regression over measurement rows Bs (B, n).
-
-    On TPU with a sparsity cap this dispatches to the fused whole-solve FR
-    kernel (cstpu.ops.fused_solve.fr_fused_solve): the OLS rescaling is
-    maintained order-recursively in VMEM instead of re-derived from a
-    (k x m) GEMM per step. `precision` as in omp_batch.
-    """
-    import jax.numpy as jnp
-
-    from cstpu.ops import fused_solve
-
+    """Batched forward regression over measurement rows Bs (B, n)."""
     A = jnp.asarray(A)
-    Bs = jnp.asarray(Bs)
-    use_fused = (
-        precision in (None, "bf16", "f32")
-        and sparsity is not None
-        and A.dtype == jnp.float32
-        and Bs.ndim == 2
-        and jax.default_backend() == "tpu"
-        and fused_solve.supported_fr(A, Bs, int(sparsity), _cdt(precision))
-    )
-    if use_fused:
-        cdt = _cdt(precision)
-        sol, _ = fused_solve.fr_fused_solve(
-            A, Bs, int(sparsity), max_residual, min_decrease, corr_dtype=cdt)
-        return sol
-    if (precision in (None, "bf16", "f32") and sparsity is not None
-            and jax.default_backend() == "tpu" and _stream_ok(A, Bs, precision)):
-        from cstpu.parallel.sharded import fr_sharded_fused
-
-        cdt = _cdt(precision)
-        return fr_sharded_fused(A, Bs, int(sparsity), _one_device_mesh(),
-                                max_residual, min_decrease, corr_dtype=cdt)
-    return jax.vmap(
-        lambda bb: fr(A, bb, max_residual, min_decrease, sparsity))(Bs)
+    return jax.vmap(lambda bb: fr(A, bb, max_residual, min_decrease,
+                                  sparsity, precision=precision))(
+        jnp.asarray(Bs))
 
 
 def mp_batch(A, Bs, k: int, precision=None):
-    """Batched matching pursuit (dense solutions, (B, m)).
-
-    On TPU dispatches to the fused whole-solve MP kernel.
-    """
-    import jax.numpy as jnp
-
-    from cstpu.ops import fused_solve
-
+    """Batched matching pursuit (dense solutions, (B, m))."""
     A = jnp.asarray(A)
-    Bs = jnp.asarray(Bs)
-    use_fused = (
-        precision in (None, "bf16", "f32")
-        and A.dtype == jnp.float32
-        and Bs.ndim == 2
-        and jax.default_backend() == "tpu"
-        and fused_solve.supported(A, Bs, 1, _cdt(precision))
-    )
-    if use_fused:
-        cdt = _cdt(precision)
-        x, _ = fused_solve.mp_fused_solve(A, Bs, int(k), corr_dtype=cdt)
-        return x
-    if (precision in (None, "bf16", "f32")
-            and jax.default_backend() == "tpu" and _stream_ok(A, Bs, precision)):
-        from cstpu.parallel.sharded import mp_sharded_fused
-
-        cdt = _cdt(precision)
-        return mp_sharded_fused(A, Bs, int(k), _one_device_mesh(),
-                                corr_dtype=cdt)
-    return jax.vmap(lambda bb: mp(A, bb, k))(Bs)
+    return jax.vmap(lambda bb: mp(A, bb, k, precision=precision))(
+        jnp.asarray(Bs))
 
 
 def sp_batch(A, Bs, k, delta: float = 1e-12, maxiter=None, precision=None):
-    """Batched subspace pursuit over measurement rows Bs (B, n).
-
-    On TPU dispatches to the whole-solve fused SP kernel (2k-slot add/
-    delete engine in VMEM: bordered block-inverse appends, rank-one Schur
-    deletion downdates). `precision` as in omp_batch.
-    """
-    import jax.numpy as jnp
-
-    from cstpu.ops import fused_twostage
-
+    """Batched subspace pursuit over measurement rows Bs (B, n)."""
     A = jnp.asarray(A)
-    Bs = jnp.asarray(Bs)
-    use_fused = (
-        precision in (None, "bf16", "f32")
-        and A.dtype == jnp.float32
-        and Bs.ndim == 2
-        and jax.default_backend() == "tpu"
-        and fused_twostage.supported_sp(A, Bs, int(k), _cdt(precision))
-    )
-    if use_fused:
-        cdt = _cdt(precision)
-        sol, _ = fused_twostage.sp_fused_solve(A, Bs, int(k), delta,
-                                               maxiter, corr_dtype=cdt)
-        return sol
-    if (precision in (None, "bf16", "f32")
-            and jax.default_backend() == "tpu" and _stream_ok(A, Bs, precision)):
-        from cstpu.parallel.sharded import sp_sharded_fused
-
-        cdt = _cdt(precision)
-        return sp_sharded_fused(A, Bs, int(k), _one_device_mesh(), delta,
-                                maxiter, corr_dtype=cdt)
-    return jax.vmap(lambda bb: sp(A, bb, k, delta, maxiter))(Bs)
+    return jax.vmap(lambda bb: sp(A, bb, k, delta, maxiter,
+                                  precision=precision))(jnp.asarray(Bs))
 
 
 def gomp_batch(A, Bs, l, k=None, max_residual: float = 0.0, precision=None):
-    """Batched generalized OMP over measurement rows Bs (B, n).
-
-    On TPU dispatches to the whole-solve fused GOMP kernel (top-l
-    acquisitions per iteration in VMEM). `precision` as in omp_batch.
-    """
-    import jax.numpy as jnp
-
-    from cstpu.ops import fused_solve
-
+    """Batched generalized OMP over measurement rows Bs (B, n). The
+    returned slot width is min(k, m) (default m), as for `gomp`."""
     A = jnp.asarray(A)
-    Bs = jnp.asarray(Bs)
-    kk = int(min(k if k is not None else A.shape[1], A.shape[1]))
-    use_fused = (
-        precision in (None, "bf16", "f32")
-        and A.dtype == jnp.float32
-        and Bs.ndim == 2
-        and jax.default_backend() == "tpu"
-        and fused_solve.supported(A, Bs, kk, _cdt(precision))
-    )
-    if use_fused:
-        cdt = _cdt(precision)
-        sol, _ = fused_solve.gomp_fused_solve(A, Bs, int(l), kk,
-                                              max_residual, corr_dtype=cdt)
-        # the fused kernel clamps its slot width to min(kk, n); pad back
-        # to the XLA/sharded fallbacks' width so the padded shape of the
-        # returned solution is backend-independent
-        have = sol.idx.shape[1]
-        if have < kk:
-            mm = A.shape[1]
-            sol = sol._replace(
-                idx=jnp.pad(sol.idx, ((0, 0), (0, kk - have)),
-                            constant_values=mm),
-                val=jnp.pad(sol.val, ((0, 0), (0, kk - have))),
-                mask=jnp.pad(sol.mask, ((0, 0), (0, kk - have))))
-        return sol
-    if (precision in (None, "bf16", "f32")
-            and jax.default_backend() == "tpu" and _stream_ok(A, Bs, precision)):
-        from cstpu.parallel.sharded import gomp_sharded_fused
-
-        cdt = _cdt(precision)
-        return gomp_sharded_fused(A, Bs, int(l), kk, _one_device_mesh(),
-                                  max_residual, corr_dtype=cdt)
-    return jax.vmap(lambda bb: gomp(A, bb, l, k, max_residual))(Bs)
+    return jax.vmap(lambda bb: gomp(A, bb, l, k, max_residual,
+                                    precision=precision))(jnp.asarray(Bs))
 
 
-def _merge_solution_rows(sol, redo, rows, m: int):
-    """Overwrite `rows` of batched SparseSolution `sol` with `redo`'s rows,
-    padding slot widths to match (inactive slots: idx=m, val=0, mask=F)."""
-    import jax.numpy as jnp
-
-    def pad_to(s, w):
-        have = s.idx.shape[1]
-        if have >= w:
-            return s
-        return s._replace(
-            idx=jnp.pad(s.idx, ((0, 0), (0, w - have)), constant_values=m),
-            val=jnp.pad(s.val, ((0, 0), (0, w - have))),
-            mask=jnp.pad(s.mask, ((0, 0), (0, w - have))),
-        )
-
-    w = max(sol.idx.shape[1], redo.idx.shape[1])
-    sol, redo = pad_to(sol, w), pad_to(redo, w)
-    rows = jnp.asarray(rows)
-    return sol._replace(
-        idx=sol.idx.at[rows].set(redo.idx),
-        val=sol.val.at[rows].set(redo.val),
-        mask=sol.mask.at[rows].set(redo.mask),
-    )
-
-
-def rmp_batch(A, Bs, k=None, delta=None, maxiter: int = 1, kmax: int = 32,
-              precision=None):
-    """Batched RMP over measurement rows Bs (B, n).
-
-    Both variants dispatch on TPU to the whole-solve fused RMP kernel
-    with a `kmax`-slot active-set cap; instances whose forward stage
-    outgrows the cap are reported by the kernel and re-solved on the
-    uncapped vmapped XLA path, so the cap is a pure performance knob.
-    (The k variant's forward stage runs to exhaustion, so on problems
-    whose f32 exhaustion support exceeds kmax the fallback simply does
-    more of the work — raise kmax to keep it on-kernel.)
-    """
-    import jax.numpy as jnp
-
-    from cstpu.ops import fused_twostage
-
-    if (k is None) == (delta is None):
-        # validate up front: the fused path only checks delta, so k+delta
-        # together would silently run the delta variant on TPU while the
-        # vmapped fallback raises — same arguments, backend-dependent
-        # behavior
-        raise ValueError("specify exactly one of k or delta")
+def rmp_batch(A, Bs, k=None, delta=None, maxiter: int = 1, precision=None):
+    """Batched RMP over measurement rows Bs (B, n): exactly one of `k`
+    (backward down to k atoms) or `delta` (marginal tolerance)."""
     A = jnp.asarray(A)
-    Bs = jnp.asarray(Bs)
-    use_fused = (
-        precision in (None, "bf16", "f32")
-        and A.dtype == jnp.float32
-        and Bs.ndim == 2
-        and (k is None or int(k) <= int(kmax))
-        and jax.default_backend() == "tpu"
-        and fused_twostage.supported_rmp(A, Bs, int(kmax), _cdt(precision))
-    )
-    if use_fused:
-        cdt = _cdt(precision)
-        sol, _, capped = fused_twostage.rmp_fused_solve(
-            A, Bs, k=k, delta=delta, maxiter=maxiter, kmax=int(kmax),
-            corr_dtype=cdt)
-        import numpy as np
-
-        capped_rows = np.flatnonzero(np.asarray(capped))
-        if capped_rows.size:
-            # exact fallback for the (rare) instances that outgrew kmax
-            redo = jax.vmap(lambda bb: rmp(A, bb, k=k, delta=delta,
-                                           maxiter=maxiter))(Bs[capped_rows])
-            sol = _merge_solution_rows(sol, redo, capped_rows, A.shape[1])
-        return sol
-    return jax.vmap(lambda bb: rmp(A, bb, k=k, delta=delta,
-                                   maxiter=maxiter))(Bs)
+    return jax.vmap(lambda bb: rmp(A, bb, k=k, delta=delta, maxiter=maxiter,
+                                   precision=precision))(jnp.asarray(Bs))
 
 
-def foba_batch(A, Bs, delta: float, kmax: int = 32, precision=None):
-    """Batched FoBa over measurement rows Bs (B, n).
-
-    On TPU dispatches to the whole-solve fused FoBa kernel (forward step +
-    half-gain-bounded backward deletions per iteration, all in VMEM), with
-    the same kmax-cap-and-fallback contract as rmp_batch.
-    """
-    import jax.numpy as jnp
-
-    from cstpu.ops import fused_twostage
-
+def foba_batch(A, Bs, delta: float, precision=None):
+    """Batched FoBa over measurement rows Bs (B, n)."""
     A = jnp.asarray(A)
-    Bs = jnp.asarray(Bs)
-    use_fused = (
-        precision in (None, "bf16", "f32")
-        and A.dtype == jnp.float32
-        and Bs.ndim == 2
-        and jax.default_backend() == "tpu"
-        and fused_twostage.supported_rmp(A, Bs, int(kmax), _cdt(precision))
-    )
-    if use_fused:
-        cdt = _cdt(precision)
-        sol, _, capped = fused_twostage.foba_fused_solve(
-            A, Bs, delta, kmax=int(kmax), corr_dtype=cdt)
-        import numpy as np
-
-        capped_rows = np.flatnonzero(np.asarray(capped))
-        if capped_rows.size:
-            redo = jax.vmap(lambda bb: foba(A, bb, delta))(Bs[capped_rows])
-            sol = _merge_solution_rows(sol, redo, capped_rows, A.shape[1])
-        return sol
-    return jax.vmap(lambda bb: foba(A, bb, delta))(Bs)
+    return jax.vmap(lambda bb: foba(A, bb, delta, precision=precision))(
+        jnp.asarray(Bs))
 
 
 def br_batch(A, Bs, max_residual=None, max_increase=None,
              sparsity: int = 0, naive: bool = False):
     """Batched backward regression (vmapped — BR is O(m^3) by nature and
-    starts from the full LS solution; there is no fused path)."""
-    import jax.numpy as jnp
-
+    starts from the full LS solution)."""
     from cstpu.models.backward import br
 
     kw = {}
@@ -388,16 +130,8 @@ def fbr_batch(A, Bs, max_residual=None, max_increase=None,
               sparsity: int = 0, return_failed: bool = False):
     """Batched fast backward regression. With `return_failed=True` also
     returns the per-instance (B,) instability flags — the batched analog
-    of the reference's throw (src/backward.jl:169-173).
-
-    On TPU dispatches to the fused deletion kernel
-    (cstpu.ops.fused_backward): the shared Gram inverse is factorized once
-    in XLA and the Schur-downdate loop runs with it pinned in VMEM.
-    """
-    import jax.numpy as jnp
-
+    of the reference's throw (src/backward.jl:169-173)."""
     from cstpu.models.backward import fbr
-    from cstpu.ops import fused_backward
 
     kw = {}
     if max_residual is not None:
@@ -405,36 +139,19 @@ def fbr_batch(A, Bs, max_residual=None, max_increase=None,
     if max_increase is not None:
         kw["max_increase"] = max_increase
     A = jnp.asarray(A)
-    Bs = jnp.asarray(Bs)
-    if (jax.default_backend() == "tpu"
-            and fused_backward.supported_backward(A, Bs)):
-        sol, failed = fused_backward.fbr_fused_solve(
-            A, Bs, sparsity=sparsity, **kw)
-    else:
-        sol, failed = jax.vmap(
-            lambda bb: fbr(A, bb, sparsity=sparsity, return_failed=True,
-                           **kw))(Bs)
+    sol, failed = jax.vmap(
+        lambda bb: fbr(A, bb, sparsity=sparsity, return_failed=True,
+                       **kw))(jnp.asarray(Bs))
     return (sol, failed) if return_failed else sol
 
 
 def lace_batch(A, Bs, max_residual=None, max_increase=None,
                sparsity: int = 0, return_failed: bool = False):
-    """Batched LACE. On TPU dispatches to the fused deletion kernel
-    (min-|coefficient| selection) — see cstpu.ops.fused_backward.
-
-    With `return_failed=True` also returns per-instance (B,) instability
-    flags with the SAME meaning on both paths: "numerical instability was
-    detected while solving this instance". On the fused path that is the
-    kernel's Schur-downdate guard (the instance conservatively stops
-    deleting, mirroring the reference's throw at src/backward.jl:169-173);
-    on the XLA path, whose refits are exact solves with no tracked factor
-    to go indefinite, it is a non-finite check on the final active
-    coefficients (the way an exact-refit path actually manifests
-    instability)."""
-    import jax.numpy as jnp
-
+    """Batched LACE. With `return_failed=True` also returns per-instance
+    (B,) instability flags: LACE's refits are exact solves with no
+    tracked factor to go indefinite, so instability shows as non-finite
+    final active coefficients, and that is what the flag reports."""
     from cstpu.models.backward import lace
-    from cstpu.ops import fused_backward
 
     kw = {}
     if max_residual is not None:
@@ -442,14 +159,9 @@ def lace_batch(A, Bs, max_residual=None, max_increase=None,
     if max_increase is not None:
         kw["max_increase"] = max_increase
     A = jnp.asarray(A)
-    Bs = jnp.asarray(Bs)
-    if (jax.default_backend() == "tpu"
-            and fused_backward.supported_backward(A, Bs)):
-        sol, failed = fused_backward.lace_fused_solve(
-            A, Bs, sparsity=sparsity, **kw)
-    else:
-        sol = jax.vmap(lambda bb: lace(A, bb, sparsity=sparsity, **kw))(Bs)
-        failed = jnp.any(~jnp.isfinite(sol.val) & sol.mask, axis=-1)
+    sol = jax.vmap(lambda bb: lace(A, bb, sparsity=sparsity, **kw))(
+        jnp.asarray(Bs))
+    failed = jnp.any(~jnp.isfinite(sol.val) & sol.mask, axis=-1)
     return (sol, failed) if return_failed else sol
 
 
@@ -459,41 +171,32 @@ def sbl_batch(A, Bs, sigma, maxiter=None, min_change: float = 1e-6):
     The EM fixed point is the parity/correctness baseline of the SBL
     family (src/sbl.jl:4-51); production throughput lives in
     fsbl_batch/rmps_batch."""
-    import jax.numpy as jnp
-
     from cstpu.models.sbl import sbl
 
     return jax.vmap(lambda bb: sbl(A, bb, sigma, maxiter=maxiter,
                                    min_change=min_change))(jnp.asarray(Bs))
 
 
+def _atom_sharded_ok(A, Bs, sigma) -> bool:
+    """The atom-sharded SBL takes 2-D f32 batches with scalar or (n, n)
+    noise; anything else (f64, per-instance noise vectors) is vmapped."""
+    return (Bs.ndim == 2 and A.dtype == jnp.float32
+            and jnp.ndim(jnp.asarray(sigma)) in (0, 2))
+
+
 def rmps_batch(A, Bs, sigma, **kw):
-    """Batched RMPS over measurement rows Bs (B, n).
+    """Batched RMPS over measurement rows Bs (B, n) — dense (B, m) out.
 
-    On TPU with scalar noise this dispatches to the atom-sharded RMPS
-    (cstpu.parallel.sharded_sbl) on a one-device mesh: the same staged
-    coordinate ascent, but the posterior mean comes from the Woodbury
-    identity mu = Gamma A' C^-1 b instead of an (m, m) normal-equations
-    build — measured 2x faster than the vmapped path at 1024x8192 even
-    on a single chip, and it scales over the atom axis. Returns dense
-    (B, m) weights either way.
-
-    (A per-instance whole-solve Pallas kernel existed through round 2
-    but lost every hardware A/B 3-5x to this atom-sharded XLA path —
-    the per-action serial chain cannot feed the MXU — and was removed;
-    see docs/DESIGN.md §3b.)
+    Takes the atom-sharded RMPS on a one-device mesh where it applies
+    (see the module docstring and _atom_sharded_ok) and the options are
+    ones it accepts; otherwise vmaps the per-instance solver.
     """
-    import jax.numpy as jnp
-
     A = jnp.asarray(A)
     Bs = jnp.asarray(Bs)
     shard_kw = {k_: v for k_, v in kw.items()
                 if k_ in ("maxiter", "maxiter_acquisition",
                           "maxiter_deletion", "min_increase")}
-    if (jax.default_backend() == "tpu" and Bs.ndim == 2
-            and A.dtype == jnp.float32
-            and jnp.ndim(jnp.asarray(sigma)) in (0, 2)
-            and shard_kw == kw):
+    if _atom_sharded_ok(A, Bs, sigma) and shard_kw == kw:
         from cstpu.parallel.sharded_sbl import rmps_sharded
 
         return rmps_sharded(A, Bs, sigma, _one_device_mesh(), **shard_kw)
@@ -513,8 +216,6 @@ def rmps_estimate_noise_batch(A, Bs, sigma2_init: float = 1e-2,
     are masked, not stopped) — cost scales with the worst case, up to
     maxouteriter full inner solves for every row.
     Returns (X (B, m), sigma2 (B,)). Parity: src/sbl.jl:439-470."""
-    import jax.numpy as jnp
-
     from cstpu.models.sbl import _rmps_noise_one
 
     A = jnp.asarray(A)
@@ -530,23 +231,13 @@ def rmps_estimate_noise_batch(A, Bs, sigma2_init: float = 1e-2,
 def fsbl_batch(A, Bs, sigma, maxiter=None, min_increase: float = 1e-6):
     """Batched fast SBL over measurement rows Bs (B, n) — dense (B, m) out.
 
-    On TPU with scalar noise this rides the atom-sharded FSBL (measured
-    3.2x faster than the vmapped path at 1024x8192 on one chip). A
-    per-instance whole-solve Pallas kernel existed through round 2 but
-    lost every hardware A/B (fsbl 204-260 ms vs XLA 42-46 ms per
-    8-batch) — the greedy per-action serial chain starves the MXU — and
-    was removed; see docs/DESIGN.md §3b.
+    Takes the atom-sharded FSBL on a one-device mesh where it applies
+    (see the module docstring and _atom_sharded_ok); otherwise vmaps the
+    per-instance solver.
     """
-    import jax.numpy as jnp
-
     A = jnp.asarray(A)
     Bs = jnp.asarray(Bs)
-    if (jax.default_backend() == "tpu" and Bs.ndim == 2
-            and A.dtype == jnp.float32
-            and jnp.ndim(jnp.asarray(sigma)) in (0, 2)):
-        # atom-sharded FSBL on a one-device mesh: same greedy ascent, but
-        # the posterior mean rides mu = Gamma A' C^-1 b (no (m, m) build)
-        # — measured 3.2x faster than the vmapped path at 1024x8192
+    if _atom_sharded_ok(A, Bs, sigma):
         from cstpu.parallel.sharded_sbl import fsbl_sharded
 
         return fsbl_sharded(A, Bs, sigma, _one_device_mesh(), maxiter,
@@ -556,76 +247,15 @@ def fsbl_batch(A, Bs, sigma, maxiter=None, min_increase: float = 1e-6):
 
 def srr_batch(A, Bs, k: int, delta: float = 1e-12, maxiter=None,
               l: int = 1, initialization: int = 1, precision=None):
-    """Batched SRR over measurement rows Bs (B, n).
-
-    On TPU with the default oblivious initialization this dispatches to
-    the whole-solve fused SRR kernel (forward OLS steps + backward
-    deletions with order-recursive rescaling, all in VMEM). Other
-    initializations take the vmapped XLA path.
-    """
-    import jax.numpy as jnp
-
-    from cstpu.ops import fused_twostage
-
+    """Batched SRR over measurement rows Bs (B, n)."""
     A = jnp.asarray(A)
-    Bs = jnp.asarray(Bs)
-    use_fused = (
-        precision in (None, "bf16", "f32")
-        and initialization == 1
-        and A.dtype == jnp.float32
-        and Bs.ndim == 2
-        and jax.default_backend() == "tpu"
-        and fused_twostage.supported_srr(A, Bs, int(k), int(l),
-                                         _cdt(precision))
-    )
-    if use_fused:
-        cdt = _cdt(precision)
-        sol, _ = fused_twostage.srr_fused_solve(A, Bs, int(k), delta,
-                                                maxiter, int(l),
-                                                corr_dtype=cdt)
-        return sol
-    if (precision in (None, "bf16", "f32") and initialization == 1
-            and int(l) == 1 and jax.default_backend() == "tpu"
-            and _stream_ok(A, Bs, precision)):
-        from cstpu.parallel.sharded import srr_sharded_fused
-
-        cdt = _cdt(precision)
-        return srr_sharded_fused(A, Bs, int(k), _one_device_mesh(), delta,
-                                 maxiter, corr_dtype=cdt)
-    return jax.vmap(lambda bb: srr(A, bb, k, delta, maxiter,
-                                   initialization, l))(Bs)
+    return jax.vmap(lambda bb: srr(A, bb, k, delta, maxiter, initialization,
+                                   l, precision=precision))(jnp.asarray(Bs))
 
 
 def ompr_batch(A, Bs, k: int, delta: float, eta: float = 1.0,
                maxiter=None, precision=None):
-    """Batched OMP-with-replacement over measurement rows Bs (B, n).
-
-    On TPU dispatches to the whole-solve fused OMPR kernel (passive-atom
-    gradient selection, gradient coefficient step, Schur-downdate delete).
-    """
-    import jax.numpy as jnp
-
-    from cstpu.ops import fused_twostage
-
+    """Batched OMP-with-replacement over measurement rows Bs (B, n)."""
     A = jnp.asarray(A)
-    Bs = jnp.asarray(Bs)
-    use_fused = (
-        precision in (None, "bf16", "f32")
-        and A.dtype == jnp.float32
-        and Bs.ndim == 2
-        and jax.default_backend() == "tpu"
-        and fused_twostage.supported_ompr(A, Bs, int(k), _cdt(precision))
-    )
-    if use_fused:
-        cdt = _cdt(precision)
-        sol, _ = fused_twostage.ompr_fused_solve(A, Bs, int(k), delta, eta,
-                                                 maxiter, corr_dtype=cdt)
-        return sol
-    if (precision in (None, "bf16", "f32")
-            and jax.default_backend() == "tpu" and _stream_ok(A, Bs, precision)):
-        from cstpu.parallel.sharded import ompr_sharded_fused
-
-        cdt = _cdt(precision)
-        return ompr_sharded_fused(A, Bs, int(k), _one_device_mesh(), delta,
-                                  eta, maxiter, corr_dtype=cdt)
-    return jax.vmap(lambda bb: ompr(A, bb, k, delta, eta, maxiter))(Bs)
+    return jax.vmap(lambda bb: ompr(A, bb, k, delta, eta, maxiter,
+                                    precision=precision))(jnp.asarray(Bs))

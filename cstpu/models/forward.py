@@ -6,11 +6,13 @@ delta_j^2 = <a_j, r>^2 / (||a_j||^2 - ||proj_active a_j||^2), with dual
 stopping criteria (residual tolerance `max_residual`, minimum marginal
 decrease `min_decrease`) and a sparsity cap.
 
-TPU-first: the selection rule is one (k x m) GEMM + triangular solve per
-step (see cstpu.ops.active_set.ols_rescaling) instead of the reference's
+The selection rule is one (k x m) GEMM pair per step (see
+cstpu.ops.active_set.ols_rescaling) instead of the reference's
 (n x n)(n x m) `Q'A` GEMM, and the whole solve is a single jitted
 while_loop. `forward_step` is shared by SRR/RMP/FoBa exactly as
-`forward_step!` is in the reference.
+`forward_step!` is in the reference. `precision` sets the correlation's
+matmul precision (cstpu.ops.select); the rescaling is active-set algebra
+and runs at f32.
 """
 
 from __future__ import annotations
@@ -22,19 +24,21 @@ import jax.numpy as jnp
 from jax import lax
 
 from cstpu.ops import active_set as aset
-from cstpu.ops.select import top1
+from cstpu.ops.select import check_precision, correlate, corr_operand, top1
 from cstpu.utils.sparse import SparseSolution
 
 
-def forward_deltas(A, b, st, colnorm2, m: int):
+def forward_deltas(A, b, st, colnorm2, m: int, precision=None, Ac=None):
     """delta^2 for every atom: squared-residual decrease if added.
 
     Parity: `forward_delta!` (/root/reference/src/forward.jl:74-81). Active
     atoms score 0; non-positive rescalings (atoms numerically inside the
-    active span) score -inf so they are never selected.
+    active span) score -inf so they are never selected. `Ac` is
+    `corr_operand(A, precision)`, hoisted out of the caller's loop.
     """
     r = aset.residual(st, b)
-    q = r @ A  # == A'r without transposing the dictionary
+    Ac = corr_operand(A, precision) if Ac is None else Ac
+    q = correlate(Ac, r, precision)
     resc = aset.ols_rescaling(A, st, colnorm2)
     # dtype-realistic version of the reference's `rescaling > 0`: below
     # ~8n ulps of the column norm the energetic norm is numerical noise
@@ -57,7 +61,8 @@ def exhaustion_floor(A, b):
             * jnp.finfo(A.dtype).eps * jnp.linalg.norm(b))
 
 
-def forward_step(A, b, st, max_eps, min_delta, colnorm2, m: int):
+def forward_step(A, b, st, max_eps, min_delta, colnorm2, m: int,
+                 precision=None, Ac=None):
     """One forward step; returns (state, accepted, deltas).
 
     Accepts the best atom iff nnz < n, capacity remains, the residual norm
@@ -75,12 +80,12 @@ def forward_step(A, b, st, max_eps, min_delta, colnorm2, m: int):
     garbage; the reference survives only through its backward-stable
     updatable QR). The floor is applied at the call sites rather than
     here so that explicitly-bounded callers (fr with sparsity=k, the
-    fused kernels, the sharded bodies) keep the exact reference
+    sharded bodies) keep the exact reference
     contract — return exactly k atoms — and stay path-consistent.
     """
     n = A.shape[0]
     kmax = st.idx.shape[0]
-    d2, normr = forward_deltas(A, b, st, colnorm2, m)
+    d2, normr = forward_deltas(A, b, st, colnorm2, m, precision, Ac)
     i, maxd2 = top1(d2)
     want = ((st.k < n) & (st.k < kmax) & (normr > max_eps)
             & (min_delta * min_delta < maxd2))
@@ -94,10 +99,11 @@ def forward_step(A, b, st, max_eps, min_delta, colnorm2, m: int):
     return st2, accepted, d2
 
 
-@partial(jax.jit, static_argnames=("k",))
-def _fr(A, b, k: int, max_eps, min_delta):
+@partial(jax.jit, static_argnames=("k", "precision"))
+def _fr(A, b, k: int, max_eps, min_delta, precision):
     n, m = A.shape
     colnorm2 = jnp.sum(A * A, axis=0)
+    Ac = corr_operand(A, precision)
     st0 = aset.refit(aset.empty(n, k, m, A.dtype))
 
     def cond(carry):
@@ -107,7 +113,7 @@ def _fr(A, b, k: int, max_eps, min_delta):
     def body(carry):
         st, t, _ = carry
         st2, accepted, _ = forward_step(A, b, st, max_eps, min_delta,
-                                        colnorm2, m)
+                                        colnorm2, m, precision, Ac)
         return st2, t + 1, ~accepted
 
     st, _, _ = lax.while_loop(cond, body, (st0, jnp.int32(0), jnp.bool_(False)))
@@ -115,7 +121,7 @@ def _fr(A, b, k: int, max_eps, min_delta):
 
 
 def fr(A, b, max_residual: float = 0.0, min_decrease: float = 0.0,
-       sparsity: int | None = None) -> SparseSolution:
+       sparsity: int | None = None, precision=None) -> SparseSolution:
     """Forward (stepwise) regression. Parity: src/forward.jl:33-51.
 
     Stops at whichever hits first: `sparsity` atoms, residual norm below
@@ -125,14 +131,16 @@ def fr(A, b, max_residual: float = 0.0, min_decrease: float = 0.0,
     residual stop is floored at `exhaustion_floor` (see forward_step —
     an exact-to-rounding fit must not keep adding atoms). An explicit
     sparsity keeps the exact reference contract (exactly k accepted
-    atoms when the criteria allow), matching the fused kernel path.
+    atoms when the criteria allow), matching the sharded path.
     """
+    check_precision(precision)
     n, m = A.shape
     k = int(min(sparsity if sparsity is not None else m, n, m))
     max_eps = jnp.asarray(max_residual, A.dtype)
     if sparsity is None:
         max_eps = jnp.maximum(max_eps, exhaustion_floor(A, b))
-    return _fr(A, b, k, max_eps, jnp.asarray(min_decrease, A.dtype))
+    return _fr(A, b, k, max_eps, jnp.asarray(min_decrease, A.dtype),
+               precision)
 
 
 # reference aliases (src/forward.jl:13-18, :52-54)

@@ -1,10 +1,11 @@
 """Matching pursuit family: MP, OMP, GOMP, and the oblivious one-shot.
 
 Capability parity with /root/reference/src/matchingpursuit.jl and
-/root/reference/src/oblivious.jl, redesigned TPU-first: each solver is one
-jit-compiled `lax.while_loop` over fixed-shape masked active-set state, so a
-whole k-step solve is a single XLA program (no per-step dispatch), and the
-whole solver vmaps over problem batches.
+/root/reference/src/oblivious.jl, redesigned batched-first: each solver is
+one jit-compiled `lax.while_loop` over fixed-shape masked active-set state,
+so a whole k-step solve is a single XLA program (no per-step dispatch), and
+the whole solver vmaps over problem batches. `precision` sets the
+correlation's matmul precision (cstpu.ops.select).
 
 Semantics preserved from the reference:
   * OMP stalls (returns unchanged) when the argmax atom is already active
@@ -26,16 +27,19 @@ import jax.numpy as jnp
 from jax import lax
 
 from cstpu.ops import active_set as aset
-from cstpu.ops.select import abs_correlate, top1, topl
-from cstpu.ops.util import tree_where
+from cstpu.ops.select import (abs_correlate, check_precision, correlate,
+                              corr_operand, top1, topl)
+from cstpu.ops.util import f32_matmuls, tree_where
 from cstpu.utils.sparse import SparseSolution
 
 
-@partial(jax.jit, static_argnames=("k",))
-def _mp(A, b, k: int):
+@partial(jax.jit, static_argnames=("k", "precision"))
+def _mp(A, b, k: int, precision):
+    Ac = corr_operand(A, precision)
+    residual = f32_matmuls(lambda x: b - A @ x)
+
     def body(_, x):
-        r = b - A @ x
-        p = r @ A
+        p = correlate(Ac, residual(x), precision)
         i = jnp.argmax(jnp.abs(p))
         return x.at[i].add(p[i])
 
@@ -43,25 +47,27 @@ def _mp(A, b, k: int):
     return lax.fori_loop(0, k, body, x0)
 
 
-def mp(A, b, k: int):
+def mp(A, b, k: int, precision=None):
     """Matching pursuit: k greedy coefficient updates x[i] += <a_i, r>.
 
     Requires unit-norm columns (as the reference warns,
     src/matchingpursuit.jl:9). Returns a dense (m,) vector since MP does not
     bound its support size.
     """
-    return _mp(A, b, int(k))
+    check_precision(precision)
+    return _mp(A, b, int(k), precision)
 
 
-@partial(jax.jit, static_argnames=("k", "early_exit"))
-def _omp(A, b, k: int, eps, early_exit: bool):
+@partial(jax.jit, static_argnames=("k", "early_exit", "precision"))
+def _omp(A, b, k: int, eps, early_exit: bool, precision):
     n, m = A.shape
     st0 = aset.empty(n, k, m, A.dtype)
+    Ac = corr_operand(A, precision)
 
     # the residual is carried across steps: the post-update residual that
     # decides epsilon stopping is exactly the next step's correlation input
     def step(st, r):
-        i, _ = top1(abs_correlate(A, r))
+        i, _ = top1(abs_correlate(Ac, r, precision))
         present = aset.contains(st, i)
         full = st.k >= jnp.minimum(n, k)
         ok = ~present & ~full
@@ -93,17 +99,20 @@ def _omp(A, b, k: int, eps, early_exit: bool):
     return aset.finalize(st, m)
 
 
-def omp(A, b, k: int | None = None, max_residual: float = 0.0) -> SparseSolution:
+def omp(A, b, k: int | None = None, max_residual: float = 0.0,
+        precision=None) -> SparseSolution:
     """Orthogonal matching pursuit with LS refit of the active set.
 
     `k` caps the sparsity (default min(n, m)); `max_residual` is the epsilon
     stopping rule on the post-step residual norm. Parity:
     src/matchingpursuit.jl:54-91.
     """
+    check_precision(precision)
     n, m = A.shape
     k = int(min(k if k is not None else n, n, m))
     early_exit = float(max_residual) > 0.0
-    return _omp(A, b, k, jnp.asarray(max_residual, A.dtype), early_exit)
+    return _omp(A, b, k, jnp.asarray(max_residual, A.dtype), early_exit,
+                precision)
 
 
 def _add_absent(A, b, st, indices, cap):
@@ -118,10 +127,11 @@ def _add_absent(A, b, st, indices, cap):
     return aset.refit(st)
 
 
-@partial(jax.jit, static_argnames=("l", "k", "rem"))
-def _gomp(A, b, l: int, k: int, rem: int, eps):
+@partial(jax.jit, static_argnames=("l", "k", "rem", "precision"))
+def _gomp(A, b, l: int, k: int, rem: int, eps, precision):
     n, m = A.shape
     st0 = aset.empty(n, k, m, A.dtype)
+    Ac = corr_operand(A, precision)
     outer = k // l
     cap = jnp.minimum(n, k)
 
@@ -132,7 +142,7 @@ def _gomp(A, b, l: int, k: int, rem: int, eps):
     def body(carry):
         st, r, t, done = carry
         notfull = st.k < n
-        idx = topl(abs_correlate(A, r), l)
+        idx = topl(abs_correlate(Ac, r, precision), l)
         st2 = tree_where(notfull, _add_absent(A, b, st, idx, cap), st)
         r2 = aset.residual(st2, b)
         return st2, r2, t + 1, (~notfull) | (jnp.linalg.norm(r2) < eps)
@@ -141,22 +151,24 @@ def _gomp(A, b, l: int, k: int, rem: int, eps):
         cond, body, (st0, b, jnp.int32(0), jnp.bool_(False)))
     if rem > 0:  # unconditional remainder step, as in the reference
         r = aset.residual(st, b)
-        idx = topl(abs_correlate(A, r), rem)
+        idx = topl(abs_correlate(Ac, r, precision), rem)
         notfull = st.k < n
         st = tree_where(notfull, _add_absent(A, b, st, idx, cap), st)
     return aset.finalize(st, m)
 
 
 def gomp(A, b, l: int, k: int | None = None,
-         max_residual: float = 0.0) -> SparseSolution:
+         max_residual: float = 0.0, precision=None) -> SparseSolution:
     """Generalized OMP: add the top-l correlated atoms per iteration.
 
     Parity: src/matchingpursuit.jl:95-148 (arXiv:1111.6664).
     """
+    check_precision(precision)
     n, m = A.shape
     k = int(min(k if k is not None else m, m))
     l = int(l)
-    return _gomp(A, b, l, k, k % l, jnp.asarray(max_residual, A.dtype))
+    return _gomp(A, b, l, k, k % l, jnp.asarray(max_residual, A.dtype),
+                 precision)
 
 
 @partial(jax.jit, static_argnames=("k",))

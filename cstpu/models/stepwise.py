@@ -6,6 +6,7 @@ optionally iterated with change detection; FoBa (Zhang's adaptive
 forward-backward) permits backward steps only while their norm increase is
 at most half the last forward decrease. Both are compositions of the shared
 forward/backward step kernels, all inside a single jitted while_loop.
+`precision` sets the correlation's matmul precision (cstpu.ops.select).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from cstpu.ops import active_set as aset
+from cstpu.ops.select import check_precision, corr_operand
 from cstpu.ops.util import padded_to_dense, tree_where
 from cstpu.models.forward import exhaustion_floor, forward_step
 from cstpu.models.backward import backward_step
@@ -34,7 +36,8 @@ def _approx_eq(x, y):
         jnp.linalg.norm(x), jnp.linalg.norm(y))
 
 
-def _forward_stage(A, b, st, max_eps, min_delta, colnorm2, m, nsteps):
+def _forward_stage(A, b, st, max_eps, min_delta, colnorm2, m, nsteps,
+                   precision=None, Ac=None):
     """Run forward steps until rejection (at most nsteps)."""
     def cond(c):
         s, j, stop = c
@@ -42,7 +45,8 @@ def _forward_stage(A, b, st, max_eps, min_delta, colnorm2, m, nsteps):
 
     def body(c):
         s, j, _ = c
-        s2, acc, _ = forward_step(A, b, s, max_eps, min_delta, colnorm2, m)
+        s2, acc, _ = forward_step(A, b, s, max_eps, min_delta, colnorm2, m,
+                                  precision, Ac)
         return s2, j + 1, ~acc
 
     st, _, _ = lax.while_loop(cond, body, (st, jnp.int32(0), jnp.bool_(False)))
@@ -64,11 +68,13 @@ def _backward_stage(A, b, st, max_eps, max_delta, m, min_k=0):
     return st
 
 
-@partial(jax.jit, static_argnames=("maxiter",))
-def _rmp_delta(A, b, delta, maxiter: int, idx0=None, mask0=None):
+@partial(jax.jit, static_argnames=("maxiter", "precision"))
+def _rmp_delta(A, b, delta, maxiter: int, idx0=None, mask0=None,
+               precision=None):
     n, m = A.shape
     kmax = min(n, m)
     colnorm2 = jnp.sum(A * A, axis=0)
+    Ac = corr_operand(A, precision)
     if idx0 is None:
         st0 = aset.refit(aset.empty(n, kmax, m, A.dtype))
     else:  # warm start from a given support (src/stepwise.jl:5-6's x arg)
@@ -94,7 +100,8 @@ def _rmp_delta(A, b, delta, maxiter: int, idx0=None, mask0=None):
 
     def body(c):
         st, xt, t, _ = c
-        st = _forward_stage(A, b, st, floor, delta, colnorm2, m, n)
+        st = _forward_stage(A, b, st, floor, delta, colnorm2, m, n,
+                            precision, Ac)
         xf = _dense(st, m)
         # the reference breaks BEFORE the backward stage when the forward
         # stage left x stationary (x ~= xt, src/stepwise.jl:15) — a warm
@@ -116,8 +123,8 @@ def _rmp_delta(A, b, delta, maxiter: int, idx0=None, mask0=None):
     return aset.finalize(st, m)
 
 
-@partial(jax.jit, static_argnames=("k",))
-def _rmp_k(A, b, k: int):
+@partial(jax.jit, static_argnames=("k", "precision"))
+def _rmp_k(A, b, k: int, precision):
     n, m = A.shape
     kmax = min(n, m)
     colnorm2 = jnp.sum(A * A, axis=0)
@@ -125,13 +132,13 @@ def _rmp_k(A, b, k: int):
     zero = jnp.asarray(0.0, A.dtype)
     inf = jnp.asarray(jnp.inf, A.dtype)
     st = _forward_stage(A, b, st, exhaustion_floor(A, b), zero,
-                        colnorm2, m, n)
+                        colnorm2, m, n, precision, corr_operand(A, precision))
     st = _backward_stage(A, b, st, inf, inf, m, min_k=k)
     return aset.finalize(st, m)
 
 
 def rmp(A, b, k: int | None = None, delta: float | None = None,
-        maxiter: int = 1, x0=None) -> SparseSolution:
+        maxiter: int = 1, x0=None, precision=None) -> SparseSolution:
     """Relevance matching pursuit (zero-noise limit).
 
     Two calling conventions, matching the reference's dispatch
@@ -154,6 +161,7 @@ def rmp(A, b, k: int | None = None, delta: float | None = None,
     """
     if (k is None) == (delta is None):
         raise ValueError("specify exactly one of k or delta")
+    check_precision(precision)
     if delta is not None:
         idx0 = mask0 = None
         if x0 is not None:
@@ -175,15 +183,16 @@ def rmp(A, b, k: int | None = None, delta: float | None = None,
                     idx0 = x0.astype(jnp.int32)
                 mask0 = jnp.ones(idx0.shape, bool)
         return _rmp_delta(A, b, jnp.asarray(delta, A.dtype), int(maxiter),
-                          idx0, mask0)
-    return _rmp_k(A, b, int(k))
+                          idx0, mask0, precision)
+    return _rmp_k(A, b, int(k), precision)
 
 
-@partial(jax.jit, static_argnames=())
-def _foba(A, b, delta):
+@partial(jax.jit, static_argnames=("precision",))
+def _foba(A, b, delta, precision):
     n, m = A.shape
     kmax = min(n, m)
     colnorm2 = jnp.sum(A * A, axis=0)
+    Ac = corr_operand(A, precision)
     st0 = aset.refit(aset.empty(n, kmax, m, A.dtype))
     floor = exhaustion_floor(A, b)
     inf = jnp.asarray(jnp.inf, A.dtype)
@@ -194,7 +203,8 @@ def _foba(A, b, delta):
 
     def body(c):
         st, t, _ = c
-        st, acc, d2 = forward_step(A, b, st, floor, delta, colnorm2, m)
+        st, acc, d2 = forward_step(A, b, st, floor, delta, colnorm2, m,
+                                   precision, Ac)
         # largest delta^2 of the step = the accepted forward decrease; the
         # backward stage only runs after an accepted forward step (the
         # reference breaks before it, src/stepwise.jl:51-53)
@@ -207,8 +217,9 @@ def _foba(A, b, delta):
     return aset.finalize(st, m)
 
 
-def foba(A, b, delta: float) -> SparseSolution:
+def foba(A, b, delta: float, precision=None) -> SparseSolution:
     """Adaptive forward-backward greedy (Zhang's FoBa): backward steps are
     taken only while their residual increase is at most half the last
     forward decrease. Parity: src/stepwise.jl:46-56."""
-    return _foba(A, b, jnp.asarray(delta, A.dtype))
+    check_precision(precision)
+    return _foba(A, b, jnp.asarray(delta, A.dtype), precision)

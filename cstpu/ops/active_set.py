@@ -19,16 +19,16 @@ Everything the greedy algorithms need falls out of the padded Gram inverse:
   * backward-regression gamma = diag((A_i'A_i)^-1)
     (/root/reference/src/backward.jl:69-74) = diag(Ginv), free
 
-TPU-first numerics: the hot loop (append in OMP/FR/...) updates Ginv with a
-rank-one BLOCK-INVERSE formula — outer products and GEMVs only, no
-Cholesky/triangular solves, which are serial scalar chains the MXU/VPU hate
-(profiled at ~250 us/step vs ~16 us for the whole rest of the step on
-v5e). Support deletions and bulk rebuilds recompute Ginv exactly from the
-exact G via a Cholesky solve (`refresh`), bounding error accumulation:
-only consecutive appends are incremental, mirroring the stability contract
-of the reference (QR-exact backward steps, fast forward updates). The
-engine is dtype-generic (f64 on CPU for conformance tests, f32/bf16 on
-TPU).
+Numerics: the hot loop (append in OMP/FR/...) updates Ginv with a rank-one
+BLOCK-INVERSE formula — outer products and GEMVs only, no Cholesky or
+triangular solves, which are serial scalar chains. Support deletions and
+bulk rebuilds recompute Ginv exactly from the exact G via a Cholesky solve
+(`refresh`), bounding error accumulation: only consecutive appends are
+incremental, mirroring the stability contract of the reference (QR-exact
+backward steps, fast forward updates). The engine is dtype-generic (f64 on
+CPU for the conformance tests, f32 on the GPU), and every matmul in it
+runs at float32 precision (`f32_matmuls`) whatever the caller's default:
+the correlation precision of a solve never reaches the Gram algebra.
 """
 
 from __future__ import annotations
@@ -38,6 +38,19 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 from jax.scipy.linalg import cho_solve
+
+from cstpu.ops.util import f32_matmuls
+
+
+def _degeneracy_rtol(n: int) -> float:
+    """Relative threshold below which an atom's orthogonal component is
+    numerical noise in f32-accumulated Gram arithmetic (~8n ulps). Appends
+    with d < rtol * ||a||^2 are rejected (the batched analog of the
+    reference's instability guard, /root/reference/src/backward.jl:169-173)
+    and FR treats rescalings below rtol * ||a_j||^2 as "inside the active
+    span" (a dtype-realistic version of src/forward.jl's `rescaling > 0`).
+    """
+    return 8.0 * n * 1.1920929e-07
 
 
 class ActiveSet(NamedTuple):
@@ -71,13 +84,14 @@ def contains(st: ActiveSet, i) -> jax.Array:
     return jnp.any(st.mask & (st.idx == i))
 
 
+@f32_matmuls
 def append_col(a, b, st: ActiveSet, i) -> ActiveSet:
     """Add the explicit column `a` as atom index i (no refit).
 
     Ginv grows by the block-inverse identity: with u = Ginv g,
     d = a'a - g'u, the bordered inverse is
         [[Ginv + u u'/d, -u/d], [-u'/d, 1/d]]
-    — rank-one outer products only (the TPU-fast path). Callers guard
+    — rank-one outer products only. Callers guard
     capacity/duplicates. Sharded solvers use this primitive directly with
     the psum-broadcast column.
     """
@@ -113,6 +127,7 @@ def append(A, b, st: ActiveSet, i) -> ActiveSet:
     return append_col(jnp.take(A, i, axis=1), b, st, i)
 
 
+@f32_matmuls
 def append_col_gated(a, b, st: ActiveSet, i, ok) -> ActiveSet:
     """`append_col` that is an exact no-op when `ok` is False — WITHOUT
     copying the large buffers.
@@ -129,8 +144,7 @@ def append_col_gated(a, b, st: ActiveSet, i, ok) -> ActiveSet:
         silently corrupt the LAST active slot under JAX's
         promise-in-bounds indexing);
       * degeneracy — a column numerically inside the active span is
-        rejected (d <= rtol * ||a||^2, same rule as the fused kernels and
-        the native LARS): accepting it makes the exact Gram singular and
+        rejected (d <= rtol * ||a||^2, the same rule as the native LARS): accepting it makes the exact Gram singular and
         the next `refresh` Cholesky returns silent NaNs.
     """
     kmax = st.idx.shape[0]
@@ -144,10 +158,10 @@ def append_col_gated(a, b, st: ActiveSet, i, ok) -> ActiveSet:
     u = st.Ginv @ g
     d = ata - g @ u
     # dtype-realistic degeneracy threshold (~8n ulps of the column norm,
-    # the same rule as fused_solve._degeneracy_rtol): a fixed 1e-12 is
-    # far below f32 Gram rounding noise (~n*eps*||a||^2 ~ 1e-5*||a||^2
-    # at n ~ 100), so an in-span column would still slip through in the
-    # TPU dtype and leave the exact Gram singular
+    # the dtype-scaled form of _degeneracy_rtol): a fixed 1e-12 is far
+    # below f32 Gram rounding noise (~n*eps*||a||^2 ~ 1e-5*||a||^2 at
+    # n ~ 100), so an in-span column would still slip through in f32 and
+    # leave the exact Gram singular
     rtol = 8.0 * a.shape[0] * jnp.finfo(a.dtype).eps
     ok = ok & (d > rtol * ata)
     okf = ok.astype(a.dtype)
@@ -181,6 +195,7 @@ def append_gated(A, b, st: ActiveSet, i, ok) -> ActiveSet:
     return append_col_gated(jnp.take(A, i, axis=1), b, st, i, ok)
 
 
+@f32_matmuls
 def refresh(st: ActiveSet) -> ActiveSet:
     """Recompute Ginv exactly from the exact padded Gram (Cholesky solve).
 
@@ -195,6 +210,7 @@ def refresh(st: ActiveSet) -> ActiveSet:
     return st._replace(Ginv=Ginv)
 
 
+@f32_matmuls
 def delete(st: ActiveSet, pos, m: int) -> ActiveSet:
     """Remove the active slot at `pos`, compacting left; Ginv is recomputed
     exactly (backward steps are O(k^3) in the reference too —
@@ -221,6 +237,7 @@ def delete(st: ActiveSet, pos, m: int) -> ActiveSet:
     return refresh(st2)
 
 
+@f32_matmuls
 def rebuild(A, b, idx, mask) -> ActiveSet:
     """Construct the state for a given padded support in one shot (GEMMs).
 
@@ -247,6 +264,7 @@ def rebuild(A, b, idx, mask) -> ActiveSet:
     return refresh(st)
 
 
+@f32_matmuls
 def refit(st: ActiveSet) -> ActiveSet:
     """Solve the active LS problem: coef = Ginv @ Atb — one small matvec.
 
@@ -257,6 +275,7 @@ def refit(st: ActiveSet) -> ActiveSet:
     return st._replace(coef=jnp.where(st.mask, coef, 0))
 
 
+@f32_matmuls
 def residual(st: ActiveSet, b) -> jax.Array:
     """r = b - A_active @ coef, using the cached active columns."""
     return b - st.cols @ st.coef
@@ -272,6 +291,7 @@ def gamma(st: ActiveSet) -> jax.Array:
     return jnp.diagonal(st.Ginv)
 
 
+@f32_matmuls
 def ols_rescaling(A, st: ActiveSet, colnorm2) -> jax.Array:
     """Squared energetic norms ||a_j||^2 - ||proj_active a_j||^2 for all j.
 

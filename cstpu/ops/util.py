@@ -2,14 +2,36 @@
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
+
+
+def f32_matmuls(fn):
+    """Trace the wrapped function with every matmul at float32 precision
+    (`Precision.HIGHEST`) unless a dot names its own precision.
+
+    JAX's default f32 matmul on a GPU is TF32 (about three decimal
+    digits). The active-set algebra (Gram updates, bordered and Schur
+    inverses, refits, residuals), the SBL sparsity/quality chains and the
+    iterative convex solvers accumulate long sequences of such products
+    and lose the planted supports or their feasibility at TF32, so they
+    pin true f32. f64 inputs are unaffected.
+    """
+
+    @functools.wraps(fn)
+    def wrapped(*a, **kw):
+        with jax.default_matmul_precision("float32"):
+            return fn(*a, **kw)
+
+    return wrapped
 
 
 def tree_where(pred, a, b):
     """Leafwise `where(pred, a, b)` over two matching pytrees (pred scalar).
 
-    This is the TPU-native accept/reject idiom: solvers build a candidate
+    This is the accept/reject idiom of every solver: build a candidate
     state unconditionally and select it only if the acceptance test passes,
     replacing the reference's in-place mutate-or-restore control flow
     (e.g. /root/reference/src/backward.jl:254-275).

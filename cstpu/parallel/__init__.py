@@ -1,12 +1,12 @@
 """Multi-chip entry points: mesh construction, sharded solvers, and the
 sharded convex path.
 
-The production beyond-VMEM paths are the fused hybrids (per-shard Pallas
-streaming select kernels + collective argmax — see docs/DESIGN.md §4):
-mp/omp/gomp/sp/fr/ompr/srr/rmp/foba_sharded_fused. The plain `omp_sharded` /
-`omp_sharded_rows` are the XLA-loop references the hybrids are verified
-against, and the row-sharded variant is the long-measurement-axis (n >> m)
-strategy.
+The batched column-sharded solvers are mp/omp/gomp/sp/fr/ompr/srr/rmp/
+foba_sharded_fused: one loop over the whole batch per shard, a batched
+select over the local atom shard and a collective merge per step (see
+docs/DESIGN.md §4). `omp_sharded` / `omp_sharded_rows` vmap a
+per-instance loop instead; the row-sharded variant is the
+long-measurement-axis (n >> m) strategy. A mesh is any set of devices.
 """
 
 from cstpu.parallel.mesh import make_mesh, shard_dictionary, shard_batch

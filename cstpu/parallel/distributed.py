@@ -1,23 +1,26 @@
-"""Multi-host (multi-process) initialization and mesh construction.
+"""Multi-process initialization and mesh construction.
 
-The reference is strictly single-process (SURVEY.md §2.5); this module is
-the DCN story for the TPU build: one process per host, a global mesh over
-all devices, and the same `cstpu.parallel` entry points — the atom-shard
-collectives (pmax/pmin/psum in cstpu.parallel.sharded) ride ICI within a
-host and DCN across hosts, with XLA choosing the reduction topology.
+The reference is strictly single-process (SURVEY.md §2.5); this module
+covers programs that span several processes (one per host, or one per
+device): a global mesh over all devices and the same `cstpu.parallel`
+entry points — the atom-shard collectives (pmax/pmin/psum in
+cstpu.parallel.sharded) run across processes, with XLA choosing the
+reduction.
 
-Typical pod-slice launch (same program on every host):
+Typical launch (same program in every process):
 
     from cstpu.parallel import distributed as dist
-    mesh = dist.initialize_and_mesh(batch_shards=dp, atoms_shards=tp)
+    mesh = dist.initialize_and_mesh(coordinator_address="host0:1234",
+                                    num_processes=N, process_id=i,
+                                    atoms_shards=tp)
     A = dist.shard_global(A_local_or_callback, mesh, P(None, 'atoms'))
     sol = omp_sharded(A, Bs, k, mesh)
 
-On GCE TPU VMs `jax.distributed.initialize()` autodetects the coordinator;
-elsewhere pass coordinator_address/num_processes/process_id explicitly.
-Single-process multi-device (including the CPU-simulated 8-device test
-topology) skips initialization and builds the same mesh, so code written
-against this module runs unchanged from a laptop test to a pod slice.
+The coordinator address, process count and process id are always given
+explicitly. A single process (including the CPU-simulated 8-device test
+topology, or one process driving every GPU of a host) skips
+initialization and builds the same mesh, so code written against this
+module runs unchanged from a laptop test to several hosts.
 """
 
 from __future__ import annotations
@@ -30,8 +33,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Initialize jax.distributed for a multi-host run (no-op if already
-    initialized or single-process).
+    """Initialize jax.distributed for a multi-process run. A no-op when
+    already initialized or when no coordinator is given (single process).
 
     The already-initialized test reads jax.distributed's OWN state —
     NEVER jax.process_count(), which initializes the XLA backend as a
@@ -46,20 +49,16 @@ def initialize(coordinator_address: str | None = None,
         already = False
     if already:
         return  # the launcher (or an earlier call) initialized it
-    try:
-        if coordinator_address is None and num_processes is None:
-            jax.distributed.initialize()  # TPU VM autodetection
-        else:
-            jax.distributed.initialize(coordinator_address, num_processes,
-                                       process_id)
-    except (RuntimeError, ValueError):
-        pass  # single-process environments raise; the local mesh suffices
+    if coordinator_address is None:
+        return  # single process: the local mesh suffices
+    jax.distributed.initialize(coordinator_address, num_processes,
+                               process_id)
 
 
 def global_mesh(batch_shards: int | None = None,
                 atoms_shards: int | None = None,
                 axis_names=("batch", "atoms")) -> Mesh:
-    """Mesh over ALL devices (all hosts). Defaults: no batch sharding,
+    """Mesh over ALL devices (all processes). Defaults: no batch sharding,
     every device an atom shard — the column-sharded-dictionary layout of
     BASELINE config 5."""
     ndev = jax.device_count()
@@ -75,8 +74,10 @@ def global_mesh(batch_shards: int | None = None,
     return Mesh(devs, axis_names)
 
 
-def initialize_and_mesh(**kw) -> Mesh:
-    initialize()
+def initialize_and_mesh(coordinator_address: str | None = None,
+                        num_processes: int | None = None,
+                        process_id: int | None = None, **kw) -> Mesh:
+    initialize(coordinator_address, num_processes, process_id)
     return global_mesh(**kw)
 
 
@@ -87,7 +88,7 @@ def shard_global(make_local, mesh: Mesh, spec: P, global_shape=None):
     memory — or a callback `(index: tuple[slice]) -> local shard` used with
     `jax.make_array_from_callback` (pass `global_shape`) so each host only
     ever touches its own shards — the 1M-atom dictionary path of BASELINE
-    config 5: every host generates/loads just its atom columns.
+    config 5: every process generates/loads just its atom columns.
     """
     sharding = NamedSharding(mesh, spec)
     if callable(make_local):

@@ -8,8 +8,10 @@ scaling is a first-class axis pair:
   * 'atoms' — model/tensor parallelism: the dictionary A is column-sharded
     so each chip correlates its own atom shard with the residual
 
-Collectives ride the mesh (ICI within a pod slice, DCN across hosts) via
-psum/pmin/pmax inside shard_map — see cstpu.parallel.sharded.
+Collectives ride the mesh via psum/pmin/pmax/all_gather inside shard_map
+(see cstpu.parallel.sharded); XLA lowers them to the devices' own
+collective library (NCCL on GPUs). A mesh is any set of devices, shaped
+by the algorithm: every device of one host reaches every other alike.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Column-sharded (tensor-parallel) greedy pursuit over a device mesh.
 
-The TPU-native scaling design the reference has no analog for (it is
-single-process BLAS; /root/reference/src/CompressedSensing.jl has no
-distributed deps): the dictionary A is column-sharded across the 'atoms'
-mesh axis, each device computes correlations against its own atom shard
-(the per-chip hot GEMV/GEMM), and the global atom selection is resolved
-with two scalar collectives:
+The scaling design the reference has no analog for (it is single-process
+BLAS; /root/reference/src/CompressedSensing.jl has no distributed deps):
+the dictionary A is column-sharded across the 'atoms' mesh axis, each
+device computes correlations against its own atom shard (the per-device
+hot GEMV/GEMM), and the global atom selection is resolved with two scalar
+collectives:
 
     gmax  = pmax over shards of the local best |<a, r>|
     gidx  = pmin over shards of (global index where local best == gmax)
@@ -18,7 +18,16 @@ is computed redundantly per shard (cheaper than communicating it).
 
 Problem batches ride the orthogonal 'batch' axis (pure data parallelism:
 each device group solves its slice of the b-batch, with a vmapped solver
-inside shard_map).
+inside shard_map). The mesh is any set of devices; it follows the
+algorithm, not an interconnect topology.
+
+Two families live here. `omp_sharded` / `omp_sharded_rows` vmap a
+per-instance loop inside shard_map. The `*_sharded_fused` bodies run the
+whole batch in one loop per shard: each step is one batched select over
+the local shard (cstpu.ops.select.correlate_select*, the dictionary
+pre-cast to `corr_dtype`, f32 accumulation), a collective merge, and the
+replicated active-set update. All active-set algebra runs at float32
+precision (`f32_matmuls`).
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
 from cstpu.ops import active_set as aset
-from cstpu.ops.util import tree_where
+from cstpu.ops.util import f32_matmuls, tree_where
 
 INT_MAX = jnp.iinfo(jnp.int32).max
 
@@ -112,8 +121,8 @@ def _select_bcast_fused(A_local, lval, lidx, axis: str):
     vs the 3-collective path (pmax val, pmin idx, psum column): aggregate
     ring traffic is the same O(s * B * n) for the column payload, but the
     per-step latency is ONE collective round instead of three dependent
-    ones — the first-order cost on a pod where each DCN round is
-    ~100 us x k steps. The payload rides in promote(A.dtype, f32), so the
+    ones — the first-order cost when each collective round costs tens of
+    microseconds x k steps. The payload rides in promote(A.dtype, f32), so the
     shipped column keeps the dictionary's full precision and the index
     lane is exact for m < 2^24 (f32) / 2^53 (f64) — callers gate via
     _resolve_fuse; the 1M-atom headline config is 2^20.
@@ -207,36 +216,14 @@ def _w_of(s, a):
     """Orthonormalized direction of column `a` against the active set
     (single instance — vmap over the batch): w = a_perp / sqrt(d). The
     deferred forward-rescaling downdate channel shared by the FR/SRR/
-    RMP/FoBa sharded bodies. Always f32 — it feeds the kernel-side f32
-    rescaling channel regardless of the dictionary dtype."""
+    RMP/FoBa sharded bodies. Always f32 — it feeds the f32 rescaling
+    channel of fr_step_select regardless of the dictionary dtype."""
     g = jnp.where(s.mask, s.cols.T @ a, 0)
     u = s.Ginv @ g
     aperp = a - s.cols @ u
     ata = a @ a
     d = jnp.maximum(ata - g @ u, 1e-12 * jnp.maximum(ata, 1e-30))
     return (aperp * jnp.sqrt(1.0 / d)).astype(jnp.float32)
-
-
-def _require_stream_ok(n: int, m_local: int, B: int, b_shards: int,
-                       corr_dtype, entry: str) -> None:
-    """The per-shard streaming kernels need n % 8 == 0, a per-shard batch
-    that is a multiple of 8, a 128-multiple per-shard atom width, and one
-    atom tile inside the 8 MB VMEM budget — fail with the real constraint
-    up front instead of a ZeroDivisionError deep inside the shard_map
-    trace."""
-    from cstpu.ops.stream_select import _stream_tile
-
-    itemsize = jnp.dtype(corr_dtype).itemsize
-    bad_batch = (B % b_shards) or ((B // b_shards) % 8)
-    if (n % 8 or bad_batch or m_local % 128
-            or _stream_tile(m_local, n, itemsize, 8 * 1024 * 1024) == 0):
-        raise ValueError(
-            f"{entry}: unsupported shard shape (n={n}, per-shard atom "
-            f"width {m_local}, B={B} over {b_shards} batch shards, "
-            f"{jnp.dtype(corr_dtype).name}) — needs n % 8 == 0, a "
-            "per-shard batch that is a multiple of 8, and a per-shard "
-            "atom width that is a multiple of 128 with one tile inside "
-            "the 8 MB VMEM budget")
 
 
 def _omp_shard_body(A_local, b, k: int, eps, m: int, axis: str):
@@ -312,7 +299,7 @@ def _omp_sharded_jit(mesh: Mesh, atoms_axis: str, batch_axis: str, k: int,
         m=m,
     )
     return jax.jit(jax.shard_map(
-        shard_fn, mesh=mesh,
+        f32_matmuls(shard_fn), mesh=mesh,
         in_specs=(P(None, atoms_axis), b_spec),
         out_specs=jax.tree.map(lambda _: out_leaf_spec, out_struct),
         check_vma=False,
@@ -321,27 +308,25 @@ def _omp_sharded_jit(mesh: Mesh, atoms_axis: str, batch_axis: str, k: int,
 
 
 # ---------------------------------------------------------------------------
-# Fused hybrid: per-shard streaming select kernel + collective argmax
+# Batched bodies: per-shard batched select + collective merge
 # ---------------------------------------------------------------------------
 
 def _omp_fused_shard_body(A_local, Ac_local, Bs_local, k: int, eps, m: int,
-                          axis: str, interpret: bool,
+                          axis: str,
                           fuse_collectives: bool = False):
-    """Batched OMP over a column shard, selection via the Pallas streaming
-    correlate+select kernel (cstpu.ops.stream_select).
+    """Batched OMP over a column shard.
 
-    Per step, per shard: ONE kernel launch sweeps the local dictionary
-    shard from HBM at stream rate and returns (best |corr|, local argmax)
-    for every batch row; two elementwise collectives (pmax value / pmin
-    global index) resolve the global selection with lowest-index
-    tie-breaking, the owner shard gathers the winning column EXACTLY from
-    its full-precision shard (indexed read, n-scale traffic) and a masked
+    Per step, per shard: one batched correlate+select over the local
+    dictionary shard returns (best |corr|, local argmax) for every batch
+    row; two elementwise collectives (pmax value / pmin global index)
+    resolve the global selection with lowest-index tie-breaking, the
+    owner shard gathers the winning column EXACTLY from its
+    full-precision shard (indexed read, n-scale traffic) and a masked
     psum broadcasts it, and the rank-one active-set append + k x k refit
-    runs replicated (vmapped XLA — cheap next to the shard sweep).
-    Dictionary traffic — the whole cost at beyond-VMEM scale — rides the
-    kernel; semantics match cstpu.omp exactly.
+    runs replicated (cheap next to the shard sweep). Semantics match
+    cstpu.omp exactly.
     """
-    from cstpu.ops.stream_select import correlate_select_stream
+    from cstpu.ops.select import correlate_select
 
     B, n = Bs_local.shape
     m_local = A_local.shape[1]
@@ -356,8 +341,8 @@ def _omp_fused_shard_body(A_local, Ac_local, Bs_local, k: int, eps, m: int,
     def body(carry):
         st, t, done = carry
         r = jax.vmap(aset.residual)(st, Bs_local)                  # (B, n)
-        lval, lidx = correlate_select_stream(
-            Ac_local, r, interpret=interpret)
+        lval, lidx = correlate_select(
+            Ac_local, r)
         if fuse_collectives:
             col, gsel, _ = _select_bcast_fused(A_local, lval, lidx, axis)
         else:
@@ -386,15 +371,14 @@ def _omp_fused_shard_body(A_local, Ac_local, Bs_local, k: int, eps, m: int,
 
 def omp_sharded_fused(A, Bs, k: int, mesh: Mesh, max_residual: float = 0.0,
                       atoms_axis: str = "atoms", batch_axis: str = "batch",
-                      corr_dtype=jnp.bfloat16, interpret: bool = False,
+                      corr_dtype=jnp.bfloat16,
                       fuse_collectives: bool | None = None):
-    """Column-sharded batched OMP with the per-shard Pallas streaming
-    selection kernel — the production multi-chip path for beyond-VMEM
+    """Column-sharded batched OMP — the multi-device path for large
     dictionaries (BASELINE's 1M-atom config).
 
-    `Bs` must be batched (B, n) with B divisible by the batch-shard count
-    times 8 (kernel tiling). Falls back is the caller's job (see
-    cstpu.parallel.sharded.omp_sharded for the XLA path). Deterministic
+    `Bs` must be batched (B, n) with B divisible by the batch-shard
+    count. The correlation reads a `corr_dtype` copy of A (default bf16
+    operands, f32 accumulation; float32 runs at HIGHEST). Deterministic
     selection with lowest-global-index tie-breaking; identical to
     cstpu.omp whenever selection margins exceed the corr_dtype's noise
     floor (per-shard GEMM rounding differs from the whole-m GEMM by an
@@ -410,12 +394,9 @@ def omp_sharded_fused(A, Bs, k: int, mesh: Mesh, max_residual: float = 0.0,
     # without forcing callers/tests to materialize a conforming dictionary
     fuse_collectives = _resolve_fuse(fuse_collectives, m, A.dtype,
                                      "omp_sharded_fused")
-    _require_stream_ok(n, m // n_shards, Bs.shape[0],
-                       mesh.shape[batch_axis], corr_dtype,
-                       "omp_sharded_fused")
     fn = _omp_sharded_fused_jit(mesh, atoms_axis, batch_axis, k, m,
                                 float(max_residual), A.dtype.name,
-                                jnp.dtype(corr_dtype).name, bool(interpret),
+                                jnp.dtype(corr_dtype).name,
                                 bool(fuse_collectives))
     return fn(A, jnp.asarray(A, corr_dtype), Bs)
 
@@ -424,14 +405,13 @@ def omp_sharded_fused(A, Bs, k: int, mesh: Mesh, max_residual: float = 0.0,
 def _omp_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
                            k: int, m: int, max_residual: float,
                            dtype_name: str, corr_dtype_name: str,
-                           interpret: bool, fuse_collectives: bool = False):
+                           fuse_collectives: bool = False):
     dtype = jnp.dtype(dtype_name)
     eps = jnp.asarray(max_residual, dtype)
 
     def shard_fn(A_local, Ac_local, Bs_local):
         return _omp_fused_shard_body(A_local, Ac_local, Bs_local, k=k,
                                      eps=eps, m=m, axis=atoms_axis,
-                                     interpret=interpret,
                                      fuse_collectives=fuse_collectives)
 
     from cstpu.utils.sparse import SparseSolution
@@ -442,7 +422,7 @@ def _omp_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
         m=m,
     )
     return jax.jit(jax.shard_map(
-        shard_fn, mesh=mesh,
+        f32_matmuls(shard_fn), mesh=mesh,
         in_specs=(P(None, atoms_axis), P(None, atoms_axis),
                   P(batch_axis, None)),
         out_specs=jax.tree.map(lambda _: P(batch_axis), out_struct),
@@ -452,17 +432,17 @@ def _omp_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
 
 def _gomp_fused_shard_body(A_local, Ac_local, Bs_local, l: int, k: int,
                            rem: int, eps, m: int, axis: str,
-                           interpret: bool, fuse_collectives: bool):
+                           fuse_collectives: bool):
     """Batched GOMP over a column shard: per outer step each shard's
-    top-l candidates come from one streaming top-l kernel sweep
-    (cstpu.ops.stream_select.correlate_select_topl_stream), the global
+    top-l candidates come from one batched top-l select
+    (cstpu.ops.select.correlate_select_topl), the global
     top-l is merged from an all-gather of the S*l per-shard candidates
     (value-descending, lowest-global-index ties — exactly the vmapped
     `topl(|A'r|)` order), and the l gated appends + one refit run
     replicated. With fuse_collectives the candidate columns ride the
     same all-gather (one collective round per step instead of l + 2).
     Parity: cstpu.models.matching_pursuit._gomp."""
-    from cstpu.ops.stream_select import correlate_select_topl_stream
+    from cstpu.ops.select import correlate_select_topl
 
     B, n = Bs_local.shape
     m_local = A_local.shape[1]
@@ -473,8 +453,8 @@ def _gomp_fused_shard_body(A_local, Ac_local, Bs_local, l: int, k: int,
 
     def group_step(st, ll, gate):
         r = jax.vmap(aset.residual)(st, Bs_local)
-        lval, lidx = correlate_select_topl_stream(
-            Ac_local, r, ll, interpret=interpret)
+        lval, lidx = correlate_select_topl(
+            Ac_local, r, ll)
         if fuse_collectives:
             gsels, colss = _merge_topl_bcast_fused(
                 A_local, lval, lidx, ll, axis)
@@ -515,11 +495,11 @@ def _gomp_fused_shard_body(A_local, Ac_local, Bs_local, l: int, k: int,
 def gomp_sharded_fused(A, Bs, l: int, k: int, mesh: Mesh,
                        max_residual: float = 0.0,
                        atoms_axis: str = "atoms", batch_axis: str = "batch",
-                       corr_dtype=jnp.bfloat16, interpret: bool = False,
+                       corr_dtype=jnp.bfloat16,
                        fuse_collectives: bool | None = None):
-    """Column-sharded batched GOMP with per-shard streaming top-l
-    selection kernels — the multi-chip path for l-atoms-per-step pursuit
-    at beyond-VMEM dictionary scale. Semantics of cstpu.gomp."""
+    """Column-sharded batched GOMP (per-shard top-l select) — the
+    multi-device path for l-atoms-per-step pursuit. Semantics of
+    cstpu.gomp."""
     n, m = A.shape
     k = int(min(k if k is not None else m, m))
     l = int(l)
@@ -528,12 +508,9 @@ def gomp_sharded_fused(A, Bs, l: int, k: int, mesh: Mesh,
         raise ValueError(f"m = {m} not divisible by atom shards {n_shards}")
     fuse_collectives = _resolve_fuse(fuse_collectives, m, A.dtype,
                                      "gomp_sharded_fused")
-    _require_stream_ok(n, m // n_shards, Bs.shape[0],
-                       mesh.shape[batch_axis], corr_dtype,
-                       "gomp_sharded_fused")
     fn = _gomp_sharded_fused_jit(mesh, atoms_axis, batch_axis, l, k, k % l,
                                  m, float(max_residual), A.dtype.name,
-                                 jnp.dtype(corr_dtype).name, bool(interpret),
+                                 jnp.dtype(corr_dtype).name,
                                  fuse_collectives)
     return fn(A, jnp.asarray(A, corr_dtype), Bs)
 
@@ -542,7 +519,7 @@ def gomp_sharded_fused(A, Bs, l: int, k: int, mesh: Mesh,
 def _gomp_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
                             l: int, k: int, rem: int, m: int,
                             max_residual: float, dtype_name: str,
-                            corr_dtype_name: str, interpret: bool,
+                            corr_dtype_name: str,
                             fuse_collectives: bool = False):
     dtype = jnp.dtype(dtype_name)
     eps = jnp.asarray(max_residual, dtype)
@@ -550,7 +527,7 @@ def _gomp_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
     def shard_fn(A_local, Ac_local, Bs_local):
         return _gomp_fused_shard_body(A_local, Ac_local, Bs_local, l=l,
                                       k=k, rem=rem, eps=eps, m=m,
-                                      axis=atoms_axis, interpret=interpret,
+                                      axis=atoms_axis,
                                       fuse_collectives=fuse_collectives)
 
     from cstpu.utils.sparse import SparseSolution
@@ -561,7 +538,7 @@ def _gomp_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
         m=m,
     )
     return jax.jit(jax.shard_map(
-        shard_fn, mesh=mesh,
+        f32_matmuls(shard_fn), mesh=mesh,
         in_specs=(P(None, atoms_axis), P(None, atoms_axis),
                   P(batch_axis, None)),
         out_specs=jax.tree.map(lambda _: P(batch_axis), out_struct),
@@ -599,15 +576,15 @@ def _prune_to_k(st, b, k: int, m: int):
 
 
 def _sp_fused_shard_body(A_local, Ac_local, Bs_local, k: int, maxiter: int,
-                         delta, m: int, axis: str, interpret: bool,
+                         delta, m: int, axis: str,
                          fuse_collectives: bool):
     """Batched SP over a column shard: oblivious top-k init, then per
-    iteration a streaming top-k kernel sweep + all-gather merge expands
+    iteration a batched top-k select + all-gather merge expands
     the support to <= 2k, and the prune to the k largest |coefficients|
     rebuilds from cached columns. With fuse_collectives the k candidate
     columns ride the merge's all-gather (one collective round per
     iteration instead of k + 2). Parity: cstpu.models.twostage._sp."""
-    from cstpu.ops.stream_select import correlate_select_topl_stream
+    from cstpu.ops.select import correlate_select_topl
 
     B, n = Bs_local.shape
     m_local = A_local.shape[1]
@@ -618,8 +595,8 @@ def _sp_fused_shard_body(A_local, Ac_local, Bs_local, k: int, maxiter: int,
         jnp.arange(B))
 
     def acquire(st, r, gate):
-        lval, lidx = correlate_select_topl_stream(
-            Ac_local, r, k, interpret=interpret)
+        lval, lidx = correlate_select_topl(
+            Ac_local, r, k)
         if fuse_collectives:
             gsels, colss = _merge_topl_bcast_fused(
                 A_local, lval, lidx, k, axis)
@@ -665,10 +642,10 @@ def _sp_fused_shard_body(A_local, Ac_local, Bs_local, k: int, maxiter: int,
 def sp_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
                      maxiter: int | None = None,
                      atoms_axis: str = "atoms", batch_axis: str = "batch",
-                     corr_dtype=jnp.bfloat16, interpret: bool = False,
+                     corr_dtype=jnp.bfloat16,
                      fuse_collectives: bool | None = None):
-    """Column-sharded batched Subspace Pursuit with per-shard streaming
-    top-k selection kernels. Semantics of cstpu.sp."""
+    """Column-sharded batched Subspace Pursuit (per-shard top-k select).
+    Semantics of cstpu.sp."""
     n, m = A.shape
     k = int(k)
     if 2 * k > n:
@@ -679,12 +656,9 @@ def sp_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
         raise ValueError(f"m = {m} not divisible by atom shards {n_shards}")
     fuse_collectives = _resolve_fuse(fuse_collectives, m, A.dtype,
                                      "sp_sharded_fused")
-    _require_stream_ok(n, m // n_shards, Bs.shape[0],
-                       mesh.shape[batch_axis], corr_dtype,
-                       "sp_sharded_fused")
     fn = _sp_sharded_fused_jit(mesh, atoms_axis, batch_axis, k, maxiter, m,
                                float(delta), A.dtype.name,
-                               jnp.dtype(corr_dtype).name, bool(interpret),
+                               jnp.dtype(corr_dtype).name,
                                fuse_collectives)
     return fn(A, jnp.asarray(A, corr_dtype), Bs)
 
@@ -693,14 +667,14 @@ def sp_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
 def _sp_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
                           k: int, maxiter: int, m: int, delta: float,
                           dtype_name: str, corr_dtype_name: str,
-                          interpret: bool, fuse_collectives: bool = False):
+                          fuse_collectives: bool = False):
     dtype = jnp.dtype(dtype_name)
     delta_ = jnp.asarray(delta, dtype)
 
     def shard_fn(A_local, Ac_local, Bs_local):
         return _sp_fused_shard_body(A_local, Ac_local, Bs_local, k=k,
                                     maxiter=maxiter, delta=delta_, m=m,
-                                    axis=atoms_axis, interpret=interpret,
+                                    axis=atoms_axis,
                                     fuse_collectives=fuse_collectives)
 
     from cstpu.utils.sparse import SparseSolution
@@ -711,7 +685,7 @@ def _sp_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
         m=m,
     )
     return jax.jit(jax.shard_map(
-        shard_fn, mesh=mesh,
+        f32_matmuls(shard_fn), mesh=mesh,
         in_specs=(P(None, atoms_axis), P(None, atoms_axis),
                   P(batch_axis, None)),
         out_specs=jax.tree.map(lambda _: P(batch_axis), out_struct),
@@ -720,20 +694,21 @@ def _sp_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
 
 
 def _fr_fused_shard_body(A_local, Ac_local, Bs_local, k: int, max_eps,
-                         min_delta, m: int, axis: str, interpret: bool,
+                         min_delta, m: int, axis: str,
                          fuse_collectives: bool):
     """Batched forward regression over a column shard.
 
     Each shard keeps the OLS rescaling for ITS atoms (B, m_local); the
-    fr_step_select kernel folds the previous append's rank-one rescaling
-    downdate and this step's d2 scoring into one streamed pass — FR costs
-    one HBM sweep per step here, where the reference's formulation is two
+    fr_step_select folds the previous append's rank-one rescaling
+    downdate and this step's d2 scoring into one pass over the shard — FR
+    costs one dictionary sweep per step here, where the reference's
+    formulation is two
     (selection GEMV + Q'A GEMM, src/forward.jl:74-81,100-114). The scaled
     orthogonal direction w = (a - A_S Ginv g) sqrt(1/d) of each accepted
     append is computed replicated from the cached active columns and
     broadcast into the next sweep."""
-    from cstpu.ops.fused_solve import _degeneracy_rtol
-    from cstpu.ops.stream_select import fr_step_select
+    from cstpu.ops.active_set import _degeneracy_rtol
+    from cstpu.ops.select import fr_step_select
 
     B, n = Bs_local.shape
     m_local = A_local.shape[1]
@@ -756,7 +731,7 @@ def _fr_fused_shard_body(A_local, Ac_local, Bs_local, k: int, max_eps,
         r = jax.vmap(aset.residual)(st, Bs_local)
         il2c = jnp.stack([il, jnp.full_like(il, -1)], axis=1)
         dmax_l, lidx, resc = fr_step_select(
-            Ac_local, r, W, il2c, cn2, resc, deg, interpret=interpret)
+            Ac_local, r, W, il2c, cn2, resc, deg)
         if fuse_collectives:
             acol, gsel, dmax = _select_bcast_fused(
                 A_local, dmax_l, lidx, axis)
@@ -793,10 +768,10 @@ def _fr_fused_shard_body(A_local, Ac_local, Bs_local, k: int, max_eps,
 def fr_sharded_fused(A, Bs, sparsity: int, mesh: Mesh,
                      max_residual: float = 0.0, min_decrease: float = 0.0,
                      atoms_axis: str = "atoms", batch_axis: str = "batch",
-                     corr_dtype=jnp.bfloat16, interpret: bool = False,
+                     corr_dtype=jnp.bfloat16,
                      fuse_collectives: bool | None = None):
     """Column-sharded batched forward regression (OLS rule) with the
-    combined rescaling+select streaming kernel. Semantics of cstpu.fr
+    combined rescaling+select step (fr_step_select). Semantics of cstpu.fr
     with a sparsity cap."""
     n, m = A.shape
     k = int(min(sparsity, n, m))
@@ -805,13 +780,10 @@ def fr_sharded_fused(A, Bs, sparsity: int, mesh: Mesh,
         raise ValueError(f"m = {m} not divisible by atom shards {n_shards}")
     fuse_collectives = _resolve_fuse(fuse_collectives, m, A.dtype,
                                      "fr_sharded_fused")
-    _require_stream_ok(n, m // n_shards, Bs.shape[0],
-                       mesh.shape[batch_axis], corr_dtype,
-                       "fr_sharded_fused")
     fn = _fr_sharded_fused_jit(mesh, atoms_axis, batch_axis, k, m,
                                float(max_residual), float(min_decrease),
                                A.dtype.name, jnp.dtype(corr_dtype).name,
-                               bool(interpret), fuse_collectives)
+                               fuse_collectives)
     return fn(A, jnp.asarray(A, corr_dtype), Bs)
 
 
@@ -819,7 +791,7 @@ def fr_sharded_fused(A, Bs, sparsity: int, mesh: Mesh,
 def _fr_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
                           k: int, m: int, max_residual: float,
                           min_decrease: float, dtype_name: str,
-                          corr_dtype_name: str, interpret: bool,
+                          corr_dtype_name: str,
                           fuse_collectives: bool = False):
     dtype = jnp.dtype(dtype_name)
     eps = jnp.asarray(max_residual, dtype)
@@ -828,7 +800,7 @@ def _fr_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
     def shard_fn(A_local, Ac_local, Bs_local):
         return _fr_fused_shard_body(A_local, Ac_local, Bs_local, k=k,
                                     max_eps=eps, min_delta=mind, m=m,
-                                    axis=atoms_axis, interpret=interpret,
+                                    axis=atoms_axis,
                                     fuse_collectives=fuse_collectives)
 
     from cstpu.utils.sparse import SparseSolution
@@ -839,7 +811,7 @@ def _fr_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
         m=m,
     )
     return jax.jit(jax.shard_map(
-        shard_fn, mesh=mesh,
+        f32_matmuls(shard_fn), mesh=mesh,
         in_specs=(P(None, atoms_axis), P(None, atoms_axis),
                   P(batch_axis, None)),
         out_specs=jax.tree.map(lambda _: P(batch_axis), out_struct),
@@ -848,15 +820,15 @@ def _fr_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
 
 
 def _mp_fused_shard_body(A_local, Ac_local, Bs_local, k: int, m: int,
-                         axis: str, interpret: bool,
+                         axis: str,
                          fuse_collectives: bool):
     """Batched matching pursuit over a column shard: the coefficient
     vector stays SHARDED with the atoms (each shard owns x for its
-    columns); per step the streaming select kernel finds the global best
+    columns); per step the batched select finds the global best
     |<a, r>|, the owner computes the signed correlation and updates its
     local coefficient, and the replicated residual downdates by p * a.
     Parity: cstpu.models.matching_pursuit.mp (k fixed updates)."""
-    from cstpu.ops.stream_select import correlate_select_stream
+    from cstpu.ops.select import correlate_select
 
     B, n = Bs_local.shape
     m_local = A_local.shape[1]
@@ -871,8 +843,7 @@ def _mp_fused_shard_body(A_local, Ac_local, Bs_local, k: int, m: int,
         # differently than the f32 cross-shard compare), breaking the
         # sharding-invariance contract; the accepted coefficient is
         # computed in exact f32 from the broadcast column below either way
-        lval, lidx = correlate_select_stream(Ac_local, r,
-                                             interpret=interpret)
+        lval, lidx = correlate_select(Ac_local, r)
         if fuse_collectives:
             col, gsel, _ = _select_bcast_fused(A_local, lval, lidx, axis)
             owner = (gsel // m_local) == shard
@@ -896,11 +867,11 @@ def _mp_fused_shard_body(A_local, Ac_local, Bs_local, k: int, m: int,
 
 def mp_sharded_fused(A, Bs, k: int, mesh: Mesh,
                      atoms_axis: str = "atoms", batch_axis: str = "batch",
-                     corr_dtype=jnp.bfloat16, interpret: bool = False,
+                     corr_dtype=jnp.bfloat16,
                      fuse_collectives: bool | None = None):
-    """Column-sharded batched matching pursuit via the streaming select
-    kernel. Returns the dense (B, m) coefficients (sharded over both mesh
-    axes). Semantics of cstpu.mp; shards are merged on the kernel's own
+    """Column-sharded batched matching pursuit. Returns the dense (B, m)
+    coefficients (sharded over both mesh axes). Semantics of cstpu.mp;
+    shards are merged on the select's own
     scores (sharding-invariant selection) and the accepted coefficient is
     re-computed in exact f32 from the broadcast column."""
     n, m = A.shape
@@ -910,27 +881,24 @@ def mp_sharded_fused(A, Bs, k: int, mesh: Mesh,
         raise ValueError(f"m = {m} not divisible by atom shards {n_shards}")
     fuse_collectives = _resolve_fuse(fuse_collectives, m, A.dtype,
                                      "mp_sharded_fused")
-    _require_stream_ok(n, m // n_shards, Bs.shape[0],
-                       mesh.shape[batch_axis], corr_dtype,
-                       "mp_sharded_fused")
     fn = _mp_sharded_fused_jit(mesh, atoms_axis, batch_axis, k, m,
                                A.dtype.name, jnp.dtype(corr_dtype).name,
-                               bool(interpret), fuse_collectives)
+                               fuse_collectives)
     return fn(A, jnp.asarray(A, corr_dtype), Bs)
 
 
 @lru_cache(maxsize=64)
 def _mp_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
                           k: int, m: int, dtype_name: str,
-                          corr_dtype_name: str, interpret: bool,
+                          corr_dtype_name: str,
                           fuse_collectives: bool = False):
     def shard_fn(A_local, Ac_local, Bs_local):
         return _mp_fused_shard_body(A_local, Ac_local, Bs_local, k=k, m=m,
-                                    axis=atoms_axis, interpret=interpret,
+                                    axis=atoms_axis,
                                     fuse_collectives=fuse_collectives)
 
     return jax.jit(jax.shard_map(
-        shard_fn, mesh=mesh,
+        f32_matmuls(shard_fn), mesh=mesh,
         in_specs=(P(None, atoms_axis), P(None, atoms_axis),
                   P(batch_axis, None)),
         out_specs=P(batch_axis, atoms_axis),
@@ -940,7 +908,7 @@ def _mp_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
 
 def _ompr_fused_shard_body(A_local, Ac_local, Bs_local, k: int,
                            maxiter: int, delta, eta, m: int, axis: str,
-                           interpret: bool, fuse_collectives: bool):
+                           fuse_collectives: bool):
     """Batched OMPR over a column shard: the passive-atom gradient
     selection reduces to a MASKED top-1 |corr| sweep (off-support the
     dense coefficient is zero, so the score is eta*|<a,r>|), the active
@@ -948,8 +916,8 @@ def _ompr_fused_shard_body(A_local, Ac_local, Bs_local, k: int,
     eta * cols'r), and the swap's delete/refit is replicated. Each shard
     maintains the -inf exclusion mask for its own atoms.
     Parity: cstpu.models.twostage._ompr."""
-    from cstpu.ops.stream_select import (correlate_select_masked_stream,
-                                         correlate_select_topl_stream)
+    from cstpu.ops.select import (correlate_select_masked,
+                                         correlate_select_topl)
 
     B, n = Bs_local.shape
     m_local = A_local.shape[1]
@@ -972,8 +940,8 @@ def _ompr_fused_shard_body(A_local, Ac_local, Bs_local, k: int,
     # oblivious top-k init (src/twostage.jl:190)
     M = jnp.zeros((B, m_local), jnp.float32)
     st = st0
-    lval, lidx = correlate_select_topl_stream(
-        Ac_local, Bs_local, k, interpret=interpret)
+    lval, lidx = correlate_select_topl(
+        Ac_local, Bs_local, k)
     if fuse_collectives:
         gsels, colss = _merge_topl_bcast_fused(A_local, lval, lidx, k, axis)
     else:
@@ -995,8 +963,8 @@ def _ompr_fused_shard_body(A_local, Ac_local, Bs_local, k: int,
     def body(carry):
         st, M, res, t, done = carry
         r = jax.vmap(aset.residual)(st, Bs_local)
-        lval, lidx = correlate_select_masked_stream(
-            Ac_local, r, M, interpret=interpret)
+        lval, lidx = correlate_select_masked(
+            Ac_local, r, M)
         if fuse_collectives:
             col, gsel, gmax = _select_bcast_fused(A_local, lval, lidx, axis)
         else:
@@ -1040,10 +1008,10 @@ def ompr_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
                        eta: float = 1.0, maxiter: int | None = None,
                        atoms_axis: str = "atoms",
                        batch_axis: str = "batch",
-                       corr_dtype=jnp.bfloat16, interpret: bool = False,
+                       corr_dtype=jnp.bfloat16,
                        fuse_collectives: bool | None = None):
     """Column-sharded batched OMP-with-replacement via the masked
-    streaming select kernel. Semantics of cstpu.ompr."""
+    per-shard select. Semantics of cstpu.ompr."""
     n, m = A.shape
     k = int(k)
     maxiter = int(maxiter if maxiter is not None else n)
@@ -1052,13 +1020,10 @@ def ompr_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
         raise ValueError(f"m = {m} not divisible by atom shards {n_shards}")
     fuse_collectives = _resolve_fuse(fuse_collectives, m, A.dtype,
                                      "ompr_sharded_fused")
-    _require_stream_ok(n, m // n_shards, Bs.shape[0],
-                       mesh.shape[batch_axis], corr_dtype,
-                       "ompr_sharded_fused")
     fn = _ompr_sharded_fused_jit(mesh, atoms_axis, batch_axis, k, maxiter,
                                  m, float(delta), float(eta), A.dtype.name,
                                  jnp.dtype(corr_dtype).name,
-                                 bool(interpret), fuse_collectives)
+                                 fuse_collectives)
     return fn(A, jnp.asarray(A, corr_dtype), Bs)
 
 
@@ -1066,7 +1031,7 @@ def ompr_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
 def _ompr_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
                             k: int, maxiter: int, m: int, delta: float,
                             eta: float, dtype_name: str,
-                            corr_dtype_name: str, interpret: bool,
+                            corr_dtype_name: str,
                             fuse_collectives: bool = False):
     dtype = jnp.dtype(dtype_name)
     delta_ = jnp.asarray(delta, dtype)
@@ -1076,7 +1041,6 @@ def _ompr_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
         return _ompr_fused_shard_body(A_local, Ac_local, Bs_local, k=k,
                                       maxiter=maxiter, delta=delta_,
                                       eta=eta_, m=m, axis=atoms_axis,
-                                      interpret=interpret,
                                       fuse_collectives=fuse_collectives)
 
     from cstpu.utils.sparse import SparseSolution
@@ -1087,7 +1051,7 @@ def _ompr_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
         m=m,
     )
     return jax.jit(jax.shard_map(
-        shard_fn, mesh=mesh,
+        f32_matmuls(shard_fn), mesh=mesh,
         in_specs=(P(None, atoms_axis), P(None, atoms_axis),
                   P(batch_axis, None)),
         out_specs=jax.tree.map(lambda _: P(batch_axis), out_struct),
@@ -1097,7 +1061,7 @@ def _ompr_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
 
 def _srr_fused_shard_body(A_local, Ac_local, Bs_local, k: int,
                           maxiter: int, delta, m: int, axis: str,
-                          interpret: bool, fuse_collectives: bool):
+                          fuse_collectives: bool):
     """Batched SRR (l=1, oblivious init) over a column shard.
 
     Forward steps ride fr_step_select with BOTH deferred rescaling
@@ -1110,9 +1074,9 @@ def _srr_fused_shard_body(A_local, Ac_local, Bs_local, k: int,
     oblivious k-append is computed directly per shard:
     resc_j = ||a_j||^2 - a_j' C Ginv C' a_j (one init-only GEMM).
     Parity: cstpu.models.twostage._srr with initialization=1, l=1."""
-    from cstpu.ops.stream_select import (correlate_select_topl_stream,
+    from cstpu.ops.select import (correlate_select_topl,
                                          fr_step_select)
-    from cstpu.ops.fused_solve import _degeneracy_rtol
+    from cstpu.ops.active_set import _degeneracy_rtol
     from cstpu.ops.util import masked_argmin
 
     B, n = Bs_local.shape
@@ -1132,8 +1096,8 @@ def _srr_fused_shard_body(A_local, Ac_local, Bs_local, k: int,
 
     # --- oblivious top-k init -------------------------------------------
     st = st0
-    lval, lidx = correlate_select_topl_stream(
-        Ac_local, Bs_local, k, interpret=interpret)
+    lval, lidx = correlate_select_topl(
+        Ac_local, Bs_local, k)
     if fuse_collectives:
         gsels, colss = _merge_topl_bcast_fused(A_local, lval, lidx, k, axis)
     else:
@@ -1170,8 +1134,7 @@ def _srr_fused_shard_body(A_local, Ac_local, Bs_local, k: int,
         r = jax.vmap(aset.residual)(st, Bs_local)
         il2c = jnp.stack([ilm, ilr], axis=1)
         dmax_l, lidx, resc = fr_step_select(
-            Ac_local, r, W, il2c, cn2, resc, deg, V=V,
-            interpret=interpret)
+            Ac_local, r, W, il2c, cn2, resc, deg, V=V)
         if fuse_collectives:
             col, gsel, dmax = _select_bcast_fused(
                 A_local, dmax_l, lidx, axis)
@@ -1239,10 +1202,10 @@ def _srr_fused_shard_body(A_local, Ac_local, Bs_local, k: int,
 def srr_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
                       maxiter: int | None = None,
                       atoms_axis: str = "atoms", batch_axis: str = "batch",
-                      corr_dtype=jnp.bfloat16, interpret: bool = False,
+                      corr_dtype=jnp.bfloat16,
                       fuse_collectives: bool | None = None):
-    """Column-sharded batched SRR (l=1, oblivious init) — one streamed
-    dictionary pass per replacement iteration. Semantics of cstpu.srr."""
+    """Column-sharded batched SRR (l=1, oblivious init) — one dictionary
+    pass per replacement iteration. Semantics of cstpu.srr."""
     n, m = A.shape
     k = int(k)
     maxiter = int(maxiter if maxiter is not None else 4 * k)
@@ -1251,13 +1214,10 @@ def srr_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
         raise ValueError(f"m = {m} not divisible by atom shards {n_shards}")
     fuse_collectives = _resolve_fuse(fuse_collectives, m, A.dtype,
                                      "srr_sharded_fused")
-    _require_stream_ok(n, m // n_shards, Bs.shape[0],
-                       mesh.shape[batch_axis], corr_dtype,
-                       "srr_sharded_fused")
     fn = _srr_sharded_fused_jit(mesh, atoms_axis, batch_axis, k, maxiter,
                                 m, float(delta), A.dtype.name,
                                 jnp.dtype(corr_dtype).name,
-                                bool(interpret), fuse_collectives)
+                                fuse_collectives)
     return fn(A, jnp.asarray(A, corr_dtype), Bs)
 
 
@@ -1265,14 +1225,14 @@ def srr_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
 def _srr_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
                            k: int, maxiter: int, m: int, delta: float,
                            dtype_name: str, corr_dtype_name: str,
-                           interpret: bool, fuse_collectives: bool = False):
+                           fuse_collectives: bool = False):
     dtype = jnp.dtype(dtype_name)
     delta_ = jnp.asarray(delta, dtype)
 
     def shard_fn(A_local, Ac_local, Bs_local):
         return _srr_fused_shard_body(A_local, Ac_local, Bs_local, k=k,
                                      maxiter=maxiter, delta=delta_, m=m,
-                                     axis=atoms_axis, interpret=interpret,
+                                     axis=atoms_axis,
                                      fuse_collectives=fuse_collectives)
 
     from cstpu.utils.sparse import SparseSolution
@@ -1284,7 +1244,7 @@ def _srr_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
         m=m,
     )
     return jax.jit(jax.shard_map(
-        shard_fn, mesh=mesh,
+        f32_matmuls(shard_fn), mesh=mesh,
         in_specs=(P(None, atoms_axis), P(None, atoms_axis),
                   P(batch_axis, None)),
         out_specs=jax.tree.map(lambda _: P(batch_axis), out_struct),
@@ -1294,20 +1254,19 @@ def _srr_sharded_fused_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
 
 def _rmp_fused_shard_body(A_local, Ac_local, Bs_local, kmax: int,
                           maxiter: int, delta2, m: int, axis: str,
-                          interpret: bool, foba: bool,
-                          fuse_collectives: bool):
+                          foba: bool, fuse_collectives: bool):
     """Batched RMP (delta variant) or FoBa over a column shard.
 
-    Forward steps ride fr_step_select (one streamed pass each, the
+    Forward steps ride fr_step_select (one dictionary pass each, the
     previous append's rescaling downdate folded in); backward deletions
     are replicated, with their rescaling identity applied EAGERLY by one
     local XLA GEMM per delete (deletes are rare; forward sweeps are not).
-    A kmax slot cap with a per-row `capped` flag mirrors the fused-kernel
-    contract (cstpu.ops.fused_twostage._rmp_kernel): instances the cap
-    refused are re-solved exactly by the caller. Parity:
+    The active set has `kmax` slots; a per-row `capped` flag reports
+    instances whose forward stage wanted more, which the caller re-solves
+    exactly (e.g. with the uncapped vmapped rmp/foba). Parity:
     src/stepwise.jl:5-25 (RMP) / :46-56 (FoBa)."""
-    from cstpu.ops.fused_solve import _degeneracy_rtol
-    from cstpu.ops.stream_select import fr_step_select
+    from cstpu.ops.active_set import _degeneracy_rtol
+    from cstpu.ops.select import fr_step_select
 
     B, n = Bs_local.shape
     m_local = A_local.shape[1]
@@ -1323,7 +1282,7 @@ def _rmp_fused_shard_body(A_local, Ac_local, Bs_local, kmax: int,
         r = jax.vmap(aset.residual)(st, Bs_local)
         il2c = jnp.stack([il, jnp.full_like(il, -1)], axis=1)
         dmax_l, lidx, resc = fr_step_select(
-            Ac_local, r, W, il2c, cn2, resc, deg, interpret=interpret)
+            Ac_local, r, W, il2c, cn2, resc, deg)
         if fuse_collectives:
             acol, gsel, dmax = _select_bcast_fused(
                 A_local, dmax_l, lidx, axis)
@@ -1471,7 +1430,7 @@ def _rmp_fused_shard_body(A_local, Ac_local, Bs_local, kmax: int,
 
 def _rmp_foba_sharded(A, Bs, mesh: Mesh, kmax: int, maxiter: int,
                       delta: float, atoms_axis: str, batch_axis: str,
-                      corr_dtype, interpret: bool, foba: bool,
+                      corr_dtype, foba: bool,
                       fuse_collectives):
     n, m = A.shape
     n_shards = mesh.shape[atoms_axis]
@@ -1479,12 +1438,9 @@ def _rmp_foba_sharded(A, Bs, mesh: Mesh, kmax: int, maxiter: int,
         raise ValueError(f"m = {m} not divisible by atom shards {n_shards}")
     fuse_collectives = _resolve_fuse(fuse_collectives, m, A.dtype,
                                      "rmp/foba_sharded_fused")
-    _require_stream_ok(n, m // n_shards, Bs.shape[0],
-                       mesh.shape[batch_axis], corr_dtype,
-                       "rmp/foba_sharded_fused")
     fn = _rmp_sharded_jit(mesh, atoms_axis, batch_axis, int(kmax),
                           int(maxiter), m, float(delta) ** 2, A.dtype.name,
-                          jnp.dtype(corr_dtype).name, bool(interpret),
+                          jnp.dtype(corr_dtype).name,
                           bool(foba), fuse_collectives)
     idx, val, mask, capped = fn(A, jnp.asarray(A, corr_dtype), Bs)
     from cstpu.utils.sparse import SparseSolution
@@ -1494,24 +1450,23 @@ def _rmp_foba_sharded(A, Bs, mesh: Mesh, kmax: int, maxiter: int,
 def rmp_sharded_fused(A, Bs, delta: float, mesh: Mesh, kmax: int = 32,
                       maxiter: int = 1, atoms_axis: str = "atoms",
                       batch_axis: str = "batch", corr_dtype=jnp.bfloat16,
-                      interpret: bool = False,
                       fuse_collectives: bool | None = None):
     """Column-sharded batched RMP (delta variant) with the kmax-cap +
     `capped` contract. Returns (SparseSolution, capped (B,) bool)."""
     return _rmp_foba_sharded(A, Bs, mesh, kmax, maxiter, delta,
-                             atoms_axis, batch_axis, corr_dtype, interpret,
+                             atoms_axis, batch_axis, corr_dtype,
                              foba=False, fuse_collectives=fuse_collectives)
 
 
 def foba_sharded_fused(A, Bs, delta: float, mesh: Mesh, kmax: int = 32,
                        atoms_axis: str = "atoms", batch_axis: str = "batch",
-                       corr_dtype=jnp.bfloat16, interpret: bool = False,
+                       corr_dtype=jnp.bfloat16,
                        fuse_collectives: bool | None = None):
     """Column-sharded batched FoBa (half-the-last-gain backward rule).
     Returns (SparseSolution, capped (B,) bool)."""
     n = A.shape[0]
     return _rmp_foba_sharded(A, Bs, mesh, kmax, int(n), delta,
-                             atoms_axis, batch_axis, corr_dtype, interpret,
+                             atoms_axis, batch_axis, corr_dtype,
                              foba=True, fuse_collectives=fuse_collectives)
 
 
@@ -1519,7 +1474,7 @@ def foba_sharded_fused(A, Bs, delta: float, mesh: Mesh, kmax: int = 32,
 def _rmp_sharded_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
                      kmax: int, maxiter: int, m: int, delta2: float,
                      dtype_name: str, corr_dtype_name: str,
-                     interpret: bool, foba: bool,
+                     foba: bool,
                      fuse_collectives: bool = False):
     dtype = jnp.dtype(dtype_name)
     d2 = jnp.asarray(delta2, dtype)
@@ -1528,11 +1483,11 @@ def _rmp_sharded_jit(mesh: Mesh, atoms_axis: str, batch_axis: str,
         return _rmp_fused_shard_body(A_local, Ac_local, Bs_local,
                                      kmax=kmax, maxiter=maxiter, delta2=d2,
                                      m=m, axis=atoms_axis,
-                                     interpret=interpret, foba=foba,
+                                     foba=foba,
                                      fuse_collectives=fuse_collectives)
 
     return jax.jit(jax.shard_map(
-        shard_fn, mesh=mesh,
+        f32_matmuls(shard_fn), mesh=mesh,
         in_specs=(P(None, atoms_axis), P(None, atoms_axis),
                   P(batch_axis, None)),
         out_specs=(P(batch_axis), P(batch_axis), P(batch_axis),
@@ -1671,7 +1626,7 @@ def _omp_rows_jit(mesh: Mesh, meas_axis: str, k: int, m: int,
         m=m,
     )
     return jax.jit(jax.shard_map(
-        shard_fn, mesh=mesh,
+        f32_matmuls(shard_fn), mesh=mesh,
         in_specs=(P(meas_axis, None), P(meas_axis)),
         out_specs=jax.tree.map(lambda _: P(), out_struct),
         check_vma=False,

@@ -256,8 +256,7 @@ def fsbl_sharded(A, Bs, sigma, mesh: Mesh, maxiter: int | None = None,
     fn = _fsbl_sharded_jit(mesh, atoms_axis, batch_axis, maxiter, m,
                            A.dtype.name)
     # sigma2/min_increase ride as traced operands: per-dataset noise
-    # levels must not recompile the shard_map program (the convention
-    # fused_backward's thr operands established)
+    # levels must not recompile the shard_map program
     return fn(A, Bs, jnp.asarray(sigma, A.dtype),
               jnp.asarray(min_increase, A.dtype))
 
@@ -289,7 +288,7 @@ def _sq_refresh(A_local, Bs_local, alpha, sigma2, axis: str):
 
     The S sweep runs per batch row (lax.map) for the same reason as
     _rebuild_C: a batched CA would be a (B, n, m_local) temp — fatal at
-    beyond-VMEM m. Q is the cheap (B, n) @ (n, m_local) GEMM."""
+    large m. Q is the cheap (B, n) @ (n, m_local) GEMM."""
     B, n = Bs_local.shape
     f = A_local.dtype
     eye = jnp.eye(n, dtype=f)
@@ -362,7 +361,7 @@ def _rmps_shard_body(A_local, Bs_local, sigma2, maxiter: int,
 
     def owner_scalars(xs, gsel):
         """Owner's values for several per-atom arrays in ONE packed psum
-        (each separate psum is a full latency-bound round trip on DCN)."""
+        (each separate psum is a full latency-bound round trip)."""
         owner = (gsel // m_local) == shard
         sel = jnp.where(owner, gsel % m_local, 0)
         packed = jnp.stack(

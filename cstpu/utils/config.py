@@ -77,7 +77,7 @@ class SolverConfig:
 
     def run_batch(self, A, Bs, **data_kw):
         """Solve a batch of measurements with the `*_batch` entry point
-        (TPU-fused/sharded dispatch where available)."""
+        (atom-sharded SBL where available)."""
         _, batch = _registries()
         if self.solver not in batch:
             raise KeyError(f"solver {self.solver!r} has no batched entry "

@@ -6,10 +6,10 @@ Parity surface: coherence / Babel function / cumulative Babel
 (Bruckstein 2008; /root/reference/src/util.jl:64-71) and SVD whitening
 preconditioner (/root/reference/src/util.jl:77-92).
 
-TPU-first design notes: the reference computes the Babel function with a
-serial per-column loop of GEMVs + partial sorts; here it is one symmetric
-GEMM |A'A| followed by a batched `lax.top_k` and a cumsum — a single fused
-XLA program that keeps the MXU busy.
+Design notes: the reference computes the Babel function with a serial
+per-column loop of GEMVs + partial sorts; here it is one symmetric GEMM
+|A'A| followed by a batched `lax.top_k` and a cumsum — a single fused XLA
+program built around one large matrix product.
 """
 
 from __future__ import annotations

@@ -4,9 +4,8 @@ The reference has no profiling story (commented-out @btime hooks only,
 /root/reference/test/backward.jl:58-60). This module provides:
 
   * `trace(dir)` — a thin context manager over the JAX profiler; open the
-    resulting trace in XProf/TensorBoard or post-process the
-    vm.trace.json.gz it writes (that workflow is how the whole-solve fused
-    kernels were designed — see docs/DESIGN.md §3b).
+    resulting trace in XProf/TensorBoard or read it back with
+    `jax.profiler.ProfileData.from_file`.
   * `solve_cost(...)` — the bytes/FLOPs model of one batched greedy solve,
     used to turn a measured wall time into roofline fractions.
   * `roofline_report(...)` — combines a measured time with the cost model
@@ -15,8 +14,10 @@ The reference has no profiling story (commented-out @btime hooks only,
 
 The cost model is deliberately simple and documented rather than
 instrumented: every greedy step is one (B,n)x(n,m) correlation GEMM plus
-O(B·k·n) state work; the fused kernels read the dictionary from HBM once
-per SOLVE (VMEM-pinned), the XLA loop reads it once per STEP.
+O(B·k·n) state work. The dictionary is read from device memory once per
+STEP, unless it stays cache-resident across steps (an f32 1024 x 8192
+dictionary is 32 MB, inside an H100's 50 MB L2), in which case it is
+read once per SOLVE; the model reports both bounds.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from dataclasses import dataclass
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/cstpu-trace"):
+def trace(log_dir: str = "cstpu-trace"):
     """Capture a JAX profiler trace of the enclosed block."""
     import jax
 
@@ -39,8 +40,8 @@ def trace(log_dir: str = "/tmp/cstpu-trace"):
 class SolveCost:
     """FLOPs/bytes of one batched k-step greedy solve."""
     flops: float            # total floating point operations
-    hbm_bytes_fused: float  # HBM traffic if the dictionary stays in VMEM
-    hbm_bytes_loop: float   # HBM traffic reading A once per step
+    hbm_bytes_resident: float  # device-memory traffic if A stays cached
+    hbm_bytes_loop: float      # device-memory traffic reading A each step
     steps: int
     batch: int
 
@@ -53,7 +54,7 @@ def solve_cost(B: int, n: int, m: int, k: int, itemsize: int = 4,
     state_flops = 2.0 * B * k * n * k          # cols reductions per step
     return SolveCost(
         flops=gemm_flops + state_flops,
-        hbm_bytes_fused=n * m * itemsize + 2.0 * B * n * 4,
+        hbm_bytes_resident=n * m * itemsize + 2.0 * B * n * 4,
         hbm_bytes_loop=k * n * m * itemsize + 2.0 * B * n * 4,
         steps=k,
         batch=B,
@@ -72,7 +73,7 @@ def roofline_report(seconds: float, cost: SolveCost,
         "seconds": seconds,
         "tflops": cost.flops / seconds / 1e12,
         "atom_selections_per_sec": cost.batch * cost.steps / seconds,
-        "hbm_gbps_if_fused": cost.hbm_bytes_fused / seconds / 1e9,
+        "hbm_gbps_if_resident": cost.hbm_bytes_resident / seconds / 1e9,
         "hbm_gbps_if_loop": cost.hbm_bytes_loop / seconds / 1e9,
     }
     if peak_tflops:

@@ -1,8 +1,8 @@
 """Sparse-solution container and support-set helpers.
 
 The reference threads Julia `SparseVector`s (dynamic nzind/nzval) through
-every solver (/root/reference/src/util.jl:117-170). On TPU, dynamic shapes
-kill compilation, so solvers here carry fixed-size masked active sets (see
+every solver (/root/reference/src/util.jl:117-170). Under jit, dynamic
+shapes force a recompile per support size, so solvers here carry fixed-size masked active sets (see
 cstpu.ops.active_set) and return a `SparseSolution`: padded, sorted
 (idx, val, mask) triples — the static-shape analog of nzind/nzval — plus a
 dense view. The container is a registered pytree whose ambient dimension m

@@ -61,10 +61,11 @@ def main() -> None:
         "its signature and summary line — generated from the live",
         "docstrings (`PYTHONPATH=. python docs/gen_api.py`). The",
         "reference mapping for each symbol is in [PARITY.md](PARITY.md),",
-        "migration recipes in [MIGRATION.md](MIGRATION.md). Multi-chip",
-        "(`*_sharded*`) entry points live under `cstpu.parallel`,",
-        "whole-solve Pallas kernels under `cstpu.ops`, and the native",
-        "exact solvers (simplex LP, LARS/homotopy) under `cstpu.native`.",
+        "migration recipes in [MIGRATION.md](MIGRATION.md). Multi-device",
+        "(`*_sharded*`) entry points live under `cstpu.parallel`, the",
+        "active-set engine and selection primitives under `cstpu.ops`, and",
+        "the native exact solvers (simplex LP, LARS/homotopy) under",
+        "`cstpu.native`.",
         "",
     ]
     for title, names in GROUPS.items():

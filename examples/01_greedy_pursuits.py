@@ -2,7 +2,7 @@
 
 Covers the reference's test/matchingpursuit.jl + test/forward.jl +
 test/twostage.jl workflows (exact support recovery on Gaussian data,
-noiseless and noisy) and the batched-first TPU entry points.
+noiseless and noisy) and the batched-first entry points.
 
 Run:  python examples/01_greedy_pursuits.py        (any backend)
 """
@@ -50,10 +50,9 @@ err = float(jnp.max(jnp.abs(sol.todense() - x)))
 print(f"noisy omp  max coefficient error {err:.2e} (tolerance {2*delta:.0e})")
 assert err < 2 * delta
 
-# --- batched-first: the production TPU path ------------------------------
-# One shared dictionary, a batch of measurement vectors. On TPU this
-# dispatches to the whole-solve fused Pallas kernel (dictionary pinned
-# in VMEM across all k steps).
+# --- batched-first: the production accelerator path ----------------------
+# One shared dictionary, a batch of measurement vectors: each step's
+# correlation is one (B x n)(n x m) GEMM that reads A once per batch.
 Bs = jax.vmap(lambda kk: cstpu.perturb(kk, b, delta / 2))(
     jax.random.split(jax.random.PRNGKey(2), 16))
 sols = cstpu.omp_batch(A, Bs, 4)          # SparseSolution with batch axes

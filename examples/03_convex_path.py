@@ -3,7 +3,7 @@
 Covers the reference's test/basispursuit.jl workflow. The reference
 reaches C solvers through JuMP (Clp simplex for the equality LP, ECOS
 interior-point for the SOCP); cstpu provides an XLA-native ADMM path
-(the TPU default, shardable) AND exact native C++ paths — a simplex LP
+(the accelerator default, shardable) AND exact native C++ paths — a simplex LP
 (`bp(method="simplex")`) and a LASSO-homotopy / BPD-crossing solver
 (`bpd(method="homotopy")`, `cstpu.native.lasso_homotopy`) — so the
 reference's exact-arithmetic answers remain available.
@@ -25,7 +25,7 @@ import cstpu
 A, x, b = cstpu.sparse_data(jax.random.PRNGKey(6), n=32, m=64, k=3)
 true_support = cstpu.support(x)
 
-# --- equality basis pursuit: ADMM (TPU path) vs exact simplex -------------
+# --- equality basis pursuit: ADMM (accelerator path) vs exact simplex -----
 for method in ("admm", "simplex"):
     xb = cstpu.bp(A, b, method=method)
     got = cstpu.support(cstpu.droptol(xb, 1e-4))

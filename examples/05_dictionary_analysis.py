@@ -85,6 +85,6 @@ cost = cstpu.solve_cost(B=64, n=1024, m=8192, k=32)
 rep = cstpu.roofline_report(seconds=0.2, cost=cost)
 print(f"cost model: {cost.flops/1e9:.2f} GFLOP, "
       f"{cost.hbm_bytes_loop/1e9:.2f} GB streamed (loop) vs "
-      f"{cost.hbm_bytes_fused/1e9:.3f} GB (fused); "
+      f"{cost.hbm_bytes_resident/1e9:.3f} GB (cache-resident); "
       f"roofline keys {sorted(rep)}")
 print("OK")

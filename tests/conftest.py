@@ -2,13 +2,18 @@
 
 Conformance tests replicate the reference's oracles
 (/root/reference/test/*.jl) at float64 precision on CPU, with an 8-device
-virtual topology so mesh/sharding tests run without TPU hardware. Unlike
-the reference (unseeded RNG, acknowledged flaky), every test is seeded.
+virtual topology so mesh/sharding tests run without accelerator hardware.
+Unlike the reference (unseeded RNG, acknowledged flaky), every test is
+seeded. Checks that only a GPU can run carry the `gpu` marker (registered
+in pyproject.toml) and skip here; `python chip_smoke.py` is the on-card
+check.
 """
 
 import os
 
-os.environ["JAX_PLATFORMS"] = "cpu"  # force: conformance suite runs f64 CPU
+# the conformance suite runs f64 on the CPU; a run of the `gpu`-marked
+# tests on the card sets JAX_PLATFORMS=cuda itself
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 _flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in _flags:
     os.environ["XLA_FLAGS"] = (
@@ -16,12 +21,13 @@ if "xla_force_host_platform_device_count" not in _flags:
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 jax.config.update("jax_enable_x64", True)
 # persistent compilation cache: the conformance suite jit-compiles many
 # while_loop solvers; caching makes repeat runs fast
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from cstpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def planted_problem(seed, n=32, m=48, k=3, noise=5e-3, dtype=None):

@@ -110,7 +110,7 @@ def test_weighted_bp_prefers_low_weight_atoms():
 
 
 def test_bp_ard_f32_finite():
-    # f32 (the TPU dtype): a fully-pruned atom's ARD quadratic form can
+    # f32 (the accelerator dtype): a fully-pruned atom's ARD quadratic form can
     # round slightly negative; a clamp at exactly 0 made the weight 0 and
     # the next iteration's |x|/w NaN'd the whole solve. The dtype-eps
     # floor must keep the reweighted solve finite and recovering.
@@ -230,7 +230,7 @@ def _fuzz12345_problem():
 
 def test_bpd_fuzz12345_ball_regression():
     # default bpd must return a point INSIDE the delta-ball on the draw
-    # that broke the ADMM path (pinned per VERDICT r4 / fuzz seed 12345)
+    # that broke the ADMM path (fuzz seed 12345)
     import jax.numpy as jnp
 
     A, b, delta = _fuzz12345_problem()

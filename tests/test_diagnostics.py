@@ -121,4 +121,4 @@ def test_roofline_report_consistency():
     assert rep["atom_selections_per_sec"] == 64 * 32 / 1e-3
     assert 0 < rep["frac_of_peak_flops"] < 100
     # loop-traffic roof must exceed fused traffic by ~k
-    assert rep["hbm_gbps_if_loop"] > 10 * rep["hbm_gbps_if_fused"]
+    assert rep["hbm_gbps_if_loop"] > 10 * rep["hbm_gbps_if_resident"]

@@ -105,7 +105,7 @@ def test_rmp_zero_noise_limit():
 
 
 def test_fsbl_batch_dispatch():
-    # off-TPU (and by default on TPU) fsbl_batch is the vmapped XLA path
+    # f64 batches take the vmapped XLA path (the atom-sharded one is f32)
     import numpy as np
 
     from cstpu import fsbl, fsbl_batch

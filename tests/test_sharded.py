@@ -104,9 +104,10 @@ def test_bp_ard_sharded_recovers(mesh):
 
 
 def test_bp_ard_sharded_lean_mode_matches(mesh, monkeypatch):
-    # the memory-lean projection/ARD mode (auto above _WHITEN_BYTES_MAX —
-    # BASELINE config 5's 4 GB dictionary regime) must reproduce the
-    # whitened small-m path: same fixed point, no whitened (n, m) copy
+    # the memory-lean projection/ARD mode (auto above the whitening size
+    # bound — BASELINE config 5's 4 GB dictionary regime on small
+    # devices) must reproduce the whitened small-m path: same fixed
+    # point, no whitened (n, m) copy
     import cstpu.parallel.convex as cv
     A, x, b, _ = _problem(76, n=32, m=48)
     ref = np.asarray(cv.bp_ard_sharded(A, b, mesh))
@@ -124,7 +125,7 @@ def test_bp_ard_sharded_lean_mode_matches(mesh, monkeypatch):
 
 def test_bp_sharded_lean_matches_whitened_f32_ill_conditioned(
         mesh, monkeypatch):
-    # the lean mode exists ONLY for the f32 TPU large-m regime, so its
+    # the lean mode exists ONLY for the f32 large-m regime, so its
     # f32 accuracy must be pinned where the whitened path needs two
     # whitening passes: an ill-conditioned (correlated, cond ~3e4)
     # dictionary at f32. The lean mode runs the same two-pass whitening
@@ -305,15 +306,14 @@ def test_distributed_mesh_and_shard_global():
 
 
 def test_sharded_fused_omp_matches_single_device(mesh):
-    # fused hybrid: Pallas streaming select (interpret on CPU) per shard
+    # batched column-sharded body: per-shard select + collective merge
     from cstpu.parallel.sharded import omp_sharded_fused
 
     kd, kn = jax.random.split(jax.random.PRNGKey(73))
     A, x, b = sparse_data(kd, n=64, m=1024, k=5, dtype=jnp.float32)
     y = perturb(kn, b, DELTA / 2)
     Bs = jnp.stack([b, y] * 4)
-    sols = omp_sharded_fused(A, Bs, 5, mesh, corr_dtype=jnp.float32,
-                             interpret=True)
+    sols = omp_sharded_fused(A, Bs, 5, mesh, corr_dtype=jnp.float32)
     ref_b = omp(A, b, 5)
     ref_y = omp(A, y, 5)
     for i in range(8):
@@ -332,8 +332,7 @@ def test_sharded_fused_gomp_matches_single_device(mesh):
     y = perturb(kn, b, DELTA / 2)
     Bs = jnp.stack([b, y] * 4)
     # l=2, k=7 exercises the remainder step (rem=1)
-    sols = gomp_sharded_fused(A, Bs, 2, 7, mesh, corr_dtype=jnp.float32,
-                              interpret=True)
+    sols = gomp_sharded_fused(A, Bs, 2, 7, mesh, corr_dtype=jnp.float32)
     ref_b = gomp(A, b, 2, 7)
     ref_y = gomp(A, y, 2, 7)
     for i in range(8):
@@ -352,8 +351,7 @@ def test_sharded_fused_sp_matches_single_device(mesh):
     A, x, b = sparse_data(kd, n=64, m=1024, k=5, dtype=jnp.float32)
     y = perturb(kn, b, DELTA / 2)
     Bs = jnp.stack([b, y] * 4)
-    sols = sp_sharded_fused(A, Bs, 5, mesh, corr_dtype=jnp.float32,
-                            interpret=True)
+    sols = sp_sharded_fused(A, Bs, 5, mesh, corr_dtype=jnp.float32)
     ref_b = sp(A, b, 5)
     ref_y = sp(A, y, 5)
     for i in range(8):
@@ -372,8 +370,7 @@ def test_sharded_fused_fr_matches_single_device(mesh):
     A, x, b = sparse_data(kd, n=64, m=1024, k=5, dtype=jnp.float32)
     y = perturb(kn, b, DELTA / 2)
     Bs = jnp.stack([b, y] * 4)
-    sols = fr_sharded_fused(A, Bs, 5, mesh, corr_dtype=jnp.float32,
-                            interpret=True)
+    sols = fr_sharded_fused(A, Bs, 5, mesh, corr_dtype=jnp.float32)
     ref_b = fr(A, b, sparsity=5)
     ref_y = fr(A, y, sparsity=5)
     for i in range(8):
@@ -392,8 +389,7 @@ def test_sharded_fused_mp_matches_single_device(mesh):
     A, x, b = sparse_data(kd, n=64, m=1024, k=5, dtype=jnp.float32)
     y = perturb(kn, b, DELTA / 2)
     Bs = jnp.stack([b, y] * 4)
-    xs = mp_sharded_fused(A, Bs, 40, mesh, corr_dtype=jnp.float32,
-                          interpret=True)
+    xs = mp_sharded_fused(A, Bs, 40, mesh, corr_dtype=jnp.float32)
     ref = jax.vmap(lambda bb: mp(A, bb, 40))(Bs)
     np.testing.assert_allclose(np.asarray(xs), np.asarray(ref),
                                rtol=1e-4, atol=1e-6)
@@ -408,7 +404,7 @@ def test_sharded_fused_ompr_matches_single_device(mesh):
     y = perturb(kn, b, DELTA / 2)
     Bs = jnp.stack([b, y] * 4)
     sols = ompr_sharded_fused(A, Bs, 5, mesh, delta=1e-12,
-                              corr_dtype=jnp.float32, interpret=True)
+                              corr_dtype=jnp.float32)
     ref_b = ompr(A, b, 5, 1e-12)
     ref_y = ompr(A, y, 5, 1e-12)
     for i in range(8):
@@ -427,8 +423,7 @@ def test_sharded_fused_srr_matches_single_device(mesh):
     A, x, b = sparse_data(kd, n=64, m=1024, k=5, dtype=jnp.float32)
     y = perturb(kn, b, DELTA / 2)
     Bs = jnp.stack([b, y] * 4)
-    sols = srr_sharded_fused(A, Bs, 5, mesh, corr_dtype=jnp.float32,
-                             interpret=True)
+    sols = srr_sharded_fused(A, Bs, 5, mesh, corr_dtype=jnp.float32)
     ref_b = srr(A, b, 5)
     ref_y = srr(A, y, 5)
     for i in range(8):
@@ -538,7 +533,7 @@ def test_sharded_gomp_converged_rows_stop_acquiring(mesh):
     y1 = perturb(jax.random.PRNGKey(42), b2, 5e-3)  # 6-sparse: runs on
     Bs = jnp.stack([y0] * 4 + [y1] * 4)
     sol = gomp_sharded_fused(A, Bs, 2, 8, mesh, max_residual=1e-2,
-                             corr_dtype=jnp.float32, interpret=True)
+                             corr_dtype=jnp.float32)
     ref = jax.vmap(lambda bb: gomp(A, bb, 2, 8, 1e-2))(Bs)
     for i in range(8):
         got = sorted(np.asarray(sol.idx[i])[np.asarray(sol.mask[i])]
@@ -579,7 +574,7 @@ def test_sharded_fused_rmp_foba_match_single_device(mesh):
     Bs = jnp.stack([b, y] * 4)
 
     sols, capped = rmp_sharded_fused(A, Bs, DELTA, mesh, kmax=16,
-                                     corr_dtype=jnp.float32, interpret=True)
+                                     corr_dtype=jnp.float32)
     assert not bool(np.any(np.asarray(capped)))
     ref_b = rmp(A, b, delta=DELTA)
     ref_y = rmp(A, y, delta=DELTA)
@@ -591,8 +586,7 @@ def test_sharded_fused_rmp_foba_match_single_device(mesh):
                                    atol=1e-6)
 
     solf, capped = foba_sharded_fused(A, Bs, DELTA, mesh, kmax=16,
-                                      corr_dtype=jnp.float32,
-                                      interpret=True)
+                                      corr_dtype=jnp.float32)
     assert not bool(np.any(np.asarray(capped)))
     ref_b = foba(A, b, DELTA)
     ref_y = foba(A, y, DELTA)
@@ -615,8 +609,7 @@ def test_sharded_fused_srr_stress_many_seeds(mesh):
         A, x, b = sparse_data(kd, n=48, m=1024, k=6, dtype=jnp.float32)
         y = perturb(kn, b, DELTA / 2)
         Bs = jnp.stack([b, y] * 4)
-        sols = srr_sharded_fused(A, Bs, 6, mesh, corr_dtype=jnp.float32,
-                                 interpret=True)
+        sols = srr_sharded_fused(A, Bs, 6, mesh, corr_dtype=jnp.float32)
         ref_b = srr(A, b, 6)
         ref_y = srr(A, y, 6)
         for i in range(8):
@@ -636,8 +629,7 @@ def test_sharded_fused_omp_dp_tp_mesh():
     A, x, b = sparse_data(kd, n=64, m=1024, k=5, dtype=jnp.float32)
     y = perturb(kn, b, DELTA / 2)
     Bs = jnp.stack([b, y] * 8)                      # (16, 64)
-    sols = omp_sharded_fused(A, Bs, 5, mesh2, corr_dtype=jnp.float32,
-                             interpret=True)
+    sols = omp_sharded_fused(A, Bs, 5, mesh2, corr_dtype=jnp.float32)
     ref_b = omp(A, b, 5)
     ref_y = omp(A, y, 5)
     for i in range(16):
@@ -658,9 +650,9 @@ def test_fused_collectives_identical_selection(mesh):
     A, x, b = sparse_data(kd, n=64, m=1024, k=5, dtype=jnp.float32)
     Bs = jnp.stack([b, perturb(kn, b, DELTA / 2)] * 4)
     fused = omp_sharded_fused(A, Bs, 5, mesh, corr_dtype=jnp.float32,
-                              interpret=True, fuse_collectives=True)
+                              fuse_collectives=True)
     triple = omp_sharded_fused(A, Bs, 5, mesh, corr_dtype=jnp.float32,
-                               interpret=True, fuse_collectives=False)
+                               fuse_collectives=False)
     np.testing.assert_array_equal(np.asarray(fused.idx),
                                   np.asarray(triple.idx))
     np.testing.assert_array_equal(np.asarray(fused.mask),
@@ -704,7 +696,7 @@ def test_fused_collectives_identity_all_bodies(mesh, dtype_name):
     kd, kn = jax.random.split(jax.random.PRNGKey(93))
     A, x, b = sparse_data(kd, n=64, m=1024, k=5, dtype=dtype)
     Bs = jnp.stack([b, perturb(kn, b, DELTA / 2)] * 4)
-    kw = dict(corr_dtype=jnp.float32, interpret=True)
+    kw = dict(corr_dtype=jnp.float32)
     rtol = 1e-6 if dtype == jnp.float32 else 1e-13
 
     cases = {

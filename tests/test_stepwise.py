@@ -71,7 +71,7 @@ def test_rmp_warm_start_support():
 
 
 def test_rmp_foba_batch_dispatch():
-    # off-TPU these fall back to the vmapped XLA path; semantics must match
+    # the batched entry points are vmapped solvers; semantics must match
     import jax
     import jax.numpy as jnp
     import numpy as np
